@@ -1,0 +1,12 @@
+"""Online caption serving: continuous batching over the port's predict path."""
+
+from mvc_tpu_torch.serving.http import make_http_server
+from mvc_tpu_torch.serving.service import (
+    CaptionService,
+    DeadlineExceeded,
+    ServiceConfig,
+    ServiceOverloaded,
+)
+
+__all__ = ["CaptionService", "ServiceConfig", "ServiceOverloaded", "DeadlineExceeded",
+           "make_http_server"]

@@ -1,0 +1,190 @@
+"""The port's caption service against the JAX service, on the CPU.
+
+Same requests, same weights (the ``tiny`` model of tests/test_serving.py,
+carried across by the bridge): the two services must return the same
+captions.  Its random init leaves no near-tied argmax on these requests, so
+the vocab biases are left as drawn.
+Also: the HTTP front end, the card-by-default rule, and the package's
+independence from JAX.
+"""
+
+import json
+import subprocess
+import sys
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mvc_tpu.config import DecoderConfig
+from mvc_tpu.data import Vocabulary as JaxVocabulary
+from mvc_tpu.models import AVCaptioningDual as JaxDual
+from mvc_tpu.serving import CaptionService as JaxService
+from mvc_tpu.serving import ServiceConfig as JaxServiceConfig
+from mvc_tpu_torch.config import DecoderConfig as TorchDecoderConfig
+from mvc_tpu_torch.data import Vocabulary
+from mvc_tpu_torch.models.captioning import AVCaptioningDual
+from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
+from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
+
+A_DIM, V_DIM = 8, 16
+BUCKETS = (4, 8)
+TINY_V = dict(rnn_type="LSTM", in_feature_size=V_DIM, rnn_hidden_size=12,
+              embedding_size=8, attn_size=6, output_size=1)
+TINY_A = dict(rnn_type="LSTM", in_feature_size=A_DIM, rnn_hidden_size=10,
+              embedding_size=8, attn_size=6, output_size=1)
+SERVICE = dict(max_batch=4, max_wait_ms=300.0, frame_buckets=BUCKETS, max_caption_len=6,
+               audio_dim=A_DIM, visual_dim=V_DIM)
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    jvocab = JaxVocabulary(freq_threshold=1)
+    jvocab.build_vocabulary(["a man plays a guitar", "a dog runs on grass",
+                             "someone slices a tomato"])
+    path = str(tmp_path_factory.mktemp("vocab") / "vocab.json")
+    jvocab.save(path)
+    jmodel = JaxDual(vocab_size=len(jvocab), reconstructor_type="none",
+                     visual_decoder_config=DecoderConfig(**TINY_V),
+                     audio_decoder_config=DecoderConfig(**TINY_A))
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    vocab = Vocabulary.load(path)
+    assert vocab.itos == jvocab.itos and len(vocab) == len(jvocab)
+    model = AVCaptioningDual(vocab_size=len(vocab), device="cpu",
+                             visual_decoder_config=TorchDecoderConfig(**TINY_V),
+                             audio_decoder_config=TorchDecoderConfig(**TINY_A))
+    return jmodel, jvocab, params, model, vocab
+
+
+def _requests(seed, n, t_lo=5, t_hi=8):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t = int(rng.integers(t_lo, t_hi + 1))
+        out.append((rng.normal(size=(t, V_DIM)).astype(np.float32),
+                    rng.normal(size=(t, A_DIM)).astype(np.float32)))
+    return out
+
+
+def test_service_matches_jax_service(tiny):
+    jmodel, jvocab, params, model, vocab = tiny
+    reqs = _requests(0, 6)
+    with JaxService(jmodel, jax.tree.map(jax.numpy.asarray, params), jvocab,
+                    JaxServiceConfig(**SERVICE)) as svc:
+        want = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+    with CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**SERVICE),
+                        device="cpu") as svc:
+        got = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+        stats = svc.stats()
+    assert got == want
+    assert len(set(got)) > 1                                    # not one constant caption
+    assert stats["requests"] == 6 and stats["batches"] < 6      # batching happened
+    assert stats["compiled_t_pads"] == [8]
+
+
+def test_service_pads_video_only_and_above_ladder(tiny):
+    _, _, params, model, vocab = tiny
+    cfg = ServiceConfig(**dict(SERVICE, max_batch=2, max_wait_ms=1.0))
+    visual, _ = _requests(1, 1, t_lo=11, t_hi=11)[0]
+    with CaptionService(model, from_numpy_tree(params), vocab, cfg, device="cpu") as svc:
+        assert svc.warmup() == [4, 8]
+        svc.reset_stats()
+        solo = svc.submit(visual).result(timeout=60)
+        zeros = svc.submit(visual, np.zeros((11, A_DIM), np.float32)).result(timeout=60)
+        assert svc.stats()["compiled_t_pads"] == [4, 8, 16]    # next multiple of 8
+        with pytest.raises(ValueError):
+            svc.submit(np.zeros((3, V_DIM + 1), np.float32))
+    assert solo == zeros
+    with pytest.raises(RuntimeError):
+        svc.submit(visual)                                      # closed
+
+
+def test_http_round_trip(tiny):
+    _, _, params, model, vocab = tiny
+    reqs = _requests(2, 3)
+    with CaptionService(model, from_numpy_tree(params), vocab,
+                        ServiceConfig(**dict(SERVICE, max_wait_ms=20.0)), device="cpu") as svc:
+        want = [svc.submit(v, a).result(timeout=60) for v, a in reqs]
+        server = make_http_server(svc, port=0)
+        import threading
+
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return json.loads(r.read())
+
+        try:
+            v, a = reqs[0]
+            one = post("/caption", {"visual": v.tolist(), "audio": a.tolist()})
+            assert one["caption"] == want[0] and one["latency_ms"] >= 0
+            batch = post("/caption_batch", {"items": [
+                {"visual": v.tolist(), "audio": a.tolist()} for v, a in reqs]})
+            assert batch["captions"] == want
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                assert json.loads(r.read()) == {"ok": True}
+            with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                assert json.loads(r.read())["requests"] >= 7
+            with pytest.raises(urllib.error.HTTPError) as e:
+                post("/caption", {"visual": [[0.0] * (V_DIM + 1)]})
+            assert e.value.code == 400
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+def test_card_is_the_default(tiny, monkeypatch):
+    """With no CUDA device the default device raises; nothing falls back."""
+    _, _, params, model, vocab = tiny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        AVCaptioningDual(vocab_size=len(vocab))
+    with pytest.raises(RuntimeError):
+        CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**SERVICE))
+    from mvc_tpu_torch.cli import serve_captions
+
+    with pytest.raises(RuntimeError):
+        serve_captions.main(["--checkpoint", "absent.ckpt", "--vocab", "absent.json"])
+
+
+def test_unported_modes_raise(tiny):
+    _, _, params, model, vocab = tiny
+    with pytest.raises(NotImplementedError):
+        CaptionService(model, params, vocab, ServiceConfig(**dict(SERVICE, mode="beam")),
+                       device="cpu")
+    for transfer in ("bf16", "int8"):
+        with pytest.raises(ValueError):
+            CaptionService(model, params, vocab,
+                           ServiceConfig(**dict(SERVICE, transfer=transfer)), device="cpu")
+    with pytest.raises(NotImplementedError):
+        model.predict_tokens(from_numpy_tree(params), torch.zeros(1, 4, A_DIM),
+                             torch.zeros(1, 4, V_DIM), mode="beam")
+
+
+def test_package_imports_no_jax():
+    """Every module of the port imports without JAX or the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mvc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mvc_tpu')"
+        " or k.startswith('jax')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules if k.startswith('mvc_tpu_torch')]))\n"
+    )
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok ")
