@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,13 +7,15 @@ Phases, in order; any failure exits non-zero and no phase carries on past
 its own failure:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit
-2. build every CUDA source of ``mvc_tpu_torch/csrc`` with nvcc for sm_90a
+2. build every CUDA source of ``mvc_tpu_torch/csrc`` with nvcc for sm_90a,
+   one nvcc per source, all started together
 3. each kernel against its plain PyTorch version on the card, at the
-   serving shape (B=64, T=16, L=30, V=4000, full widths)
+   serving shape (B=64, T=16, max_len=30, V=4000, full widths; beam W=5)
 4. serving: ``AVCaptioningDual`` at full width with seeded random weights,
    ``CaptionService(max_batch=64)`` behind ``make_http_server``, a few dozen
-   requests through ``POST /caption`` and ``/caption_batch``; the kernels'
-   launch counts are set to 0 just before and read just after
+   requests through ``POST /caption`` and ``/caption_batch``, once in direct
+   mode and once in beam mode; each kernel's launch count is set to 0 just
+   before its mode's run and read just after
 5. times with CUDA events (warm-up excluded): kernel, plain version, bound
 
 The line before the last is the kernels' JSON record; the last line is the
@@ -34,8 +36,10 @@ import numpy as np
 import torch
 
 V, B, T, L = 4000, 64, 16, 30
+W = 5                        # beam width of the beam phases
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32, outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+BUCKETS = (8, 16, 32, 48, 64)
 
 
 def log(*a):
@@ -78,11 +82,16 @@ def decode_inputs(seed, device, b=B, t=T):
     return vf, af, mask.to(device)
 
 
-def spread_bias(decoders, seed, scale=2e-3):
+def spread_bias(decoders, seed, scale=2e-3, eos_bias=0.0):
     """Spread the vocab biases (a seeded permutation x scale) so the argmax
-    decisions stay clear of near-ties; tokens still vary row to row."""
+    and top-W decisions stay clear of near-ties; tokens still vary row to
+    row.  ``eos_bias`` lifts EOS above every other bias by that much."""
+    from mvc_tpu_torch.config import EOS_ID
+
     g = torch.Generator().manual_seed(seed)
     perm = torch.randperm(V, generator=g).float() * scale
+    if eos_bias:
+        perm[EOS_ID] = perm.max() + eos_bias
     out = []
     for p in decoders:
         p = {k: dict(v) for k, v in p.items()}
@@ -91,48 +100,93 @@ def spread_bias(decoders, seed, scale=2e-3):
     return out
 
 
-def function_work(decoders, cells, weight_bytes):
-    """FLOPs and bytes of one dual_greedy_decode call at (B, T, L, V):
-    the keys/P matmuls outside the kernel, then per row and step the query,
-    energies, context or P-sum, gates and vocab projection of each decoder.
-    Bytes: each input read once, the tokens written once."""
-    from mvc_tpu_torch.ops.dual_greedy import _use_factored
+def decode_work(decoders, feat_dims, row_steps, out_elems, weight_bytes, b=B, t=T):
+    """FLOPs and bytes of one decode call: the keys/P matmuls outside the
+    kernel, then per (row, step) the query, energies, context or P-sum,
+    gates and vocab projection of each decoder.  Bytes: each input read
+    once, the tokens written once."""
+    from mvc_tpu_torch.ops._decode_common import _use_factored
 
     flops_pre = flops_kernel = 0
-    nbytes = B * T * 4 + B * L * 4
-    for p, cell, F in zip(decoders, cells, (2048, 128)):
+    nbytes = b * t * 4 + out_elems * 4
+    for p, F in zip(decoders, feat_dims):
         E = p["embedding"]["table"].shape[1]
-        H = p["rnn"]["wh"].shape[0]
-        GH = p["rnn"]["wh"].shape[1]
+        H, GH = p["rnn"]["wh"].shape
         A = p["attention"]["W"].shape[1]
-        fac = _use_factored(B * T, F, GH)
-        flops_pre += 2 * B * T * F * A + (2 * B * T * F * GH if fac else 0)
+        fac = _use_factored(b * t, F, GH)
+        flops_pre += 2 * b * t * F * A + (2 * b * t * F * GH if fac else 0)
         kx = E if fac else E + F
-        per = (2 * H * A + 2 * T * A + 2 * T * (GH if fac else F)
+        per = (2 * H * A + 2 * t * A + 2 * t * (GH if fac else F)
                + 2 * kx * GH + 2 * H * GH + 2 * H * V)
-        flops_kernel += B * (L - 1) * per
-        nbytes += B * T * F * 4 + sum(t.numel() for sub in p.values() for t in sub.values()) * weight_bytes
+        flops_kernel += row_steps * per
+        nbytes += b * t * F * 4 + sum(x.numel() for sub in p.values() for x in sub.values()) * weight_bytes
     return flops_pre, flops_kernel, nbytes
 
 
-def check_kernel(dg, decoders, feats, mask, cells, dtype, exact):
+def bounds(flops_pre, flops_kernel, nbytes):
+    """(whole call ms, kernel alone ms, bound_by) at the card's peaks."""
+    whole = max((flops_pre + flops_kernel) / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    kernel = max(flops_kernel / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    by = "operations" if (flops_pre + flops_kernel) / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    return whole, kernel, by
+
+
+def largest_t(lib_fn, args, limit):
+    """The largest T whose shared-memory need stays within the limit."""
+    t0 = args.T
+    t_max = t0
+    while True:
+        args.T = t_max + 1
+        if lib_fn(ctypes.byref(args)) > limit:
+            break
+        t_max += 1
+    args.T = t0
+    return t_max
+
+
+def check_greedy(dg, decoders, feats, mask, cells, dtype, exact):
     tok_k = dg.dual_greedy_decode(decoders, feats, mask, L, dtype, cells)
     torch.cuda.synchronize()
     tok_p = dg.dual_greedy_decode_reference(decoders, feats, mask, L, dtype, cells)
     same = (tok_k == tok_p).float().mean().item()
     err = (tok_k.long() - tok_p.long()).abs().max().item()
-    log(f"kernel vs plain {cells} {dtype} B={mask.shape[0]} T={mask.shape[1]}: "
+    log(f"dual_greedy kernel vs plain {cells} {dtype} B={mask.shape[0]} T={mask.shape[1]}: "
         f"equal tokens {same:.6f}, "
         f"unique tokens {len(torch.unique(tok_p[:, 1:]))}, column 0 zero "
         f"{bool((tok_k[:, 0] == 0).all())}")
     if not bool((tok_k[:, 0] == 0).all()) or ((tok_k < 0) | (tok_k >= V)).any():
-        raise SystemExit("kernel tokens break the output contract")
+        raise SystemExit("dual_greedy kernel tokens break the output contract")
     if exact and same != 1.0:
-        raise SystemExit(f"kernel disagrees with its plain version ({cells}, {dtype})")
+        raise SystemExit(f"dual_greedy kernel disagrees with its plain version ({cells}, {dtype})")
     return float(err)
 
 
-def serve(model, params, vocab, device):
+def check_beam(bm, decoders, feats, mask, cells, dtype, alpha, exact, device, label=""):
+    """Kernel tokens and per-clip step counts against the plain version."""
+    from mvc_tpu_torch.config import SOS_ID
+
+    args, tok_k, steps_k, keep = bm.prepare_kernel_call(decoders, feats, mask, L, W, alpha,
+                                                        dtype, cells)
+    bm._launch(args, dtype, device)
+    torch.cuda.synchronize()
+    del keep
+    tok_p, steps_p = bm.beam_decode_reference(decoders, feats, mask, L, W, alpha, dtype, cells,
+                                              return_steps=True)
+    same = (tok_k == tok_p).float().mean().item()
+    err = (tok_k.long() - tok_p.long()).abs().max().item()
+    log(f"beam kernel vs plain {label}{cells} {dtype} W={W} alpha={alpha} B={mask.shape[0]} "
+        f"T={mask.shape[1]}: equal tokens {same:.6f}, unique tokens "
+        f"{len(torch.unique(tok_p[:, 1:]))}, steps kernel {steps_k.tolist()[:8]}... "
+        f"plain {steps_p.tolist()[:8]}...")
+    if (tok_k.shape != (mask.shape[0], L + 2) or not bool((tok_k[:, 0] == SOS_ID).all())
+            or ((tok_k < 0) | (tok_k >= V)).any()):
+        raise SystemExit("beam kernel tokens break the output contract")
+    if exact and (same != 1.0 or not torch.equal(steps_k, steps_p)):
+        raise SystemExit(f"beam kernel disagrees with its plain version ({label}{cells}, {dtype})")
+    return float(err), tok_p, steps_p
+
+
+def serve(model, params, vocab, device, mode):
     from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
 
     rng = np.random.default_rng(0)
@@ -144,7 +198,9 @@ def serve(model, params, vocab, device):
 
     singles = [clip() for _ in range(24)]
     batches = [[clip() for _ in range(12)] for _ in range(2)]
-    svc = CaptionService(model, params, vocab, ServiceConfig(max_batch=64), device=device)
+    cfg = ServiceConfig(max_batch=64, mode=mode, beam_width=W, frame_buckets=BUCKETS,
+                        max_caption_len=L)
+    svc = CaptionService(model, params, vocab, cfg, device=device)
     server = make_http_server(svc, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -159,7 +215,7 @@ def serve(model, params, vocab, device):
     try:
         t0 = time.perf_counter()
         warmed = svc.warmup()
-        log(f"warmup t_pads {warmed} in {time.perf_counter() - t0:.2f} s")
+        log(f"[{mode}] warmup t_pads {warmed} in {time.perf_counter() - t0:.2f} s")
         svc.reset_stats()
         results, errors = [None] * len(singles), []
 
@@ -188,19 +244,58 @@ def serve(model, params, vocab, device):
     if len(captions) != n or not all(isinstance(c, str) for c in captions):
         raise SystemExit("a request got no caption")
     words = {w for c in captions for w in c.split()}
-    if not words <= set(vocab.itos.values()) or max(len(c.split()) for c in captions) > L - 1:
+    if not words <= set(vocab.itos.values()) or max(len(c.split()) for c in captions) > L + 1:
         raise SystemExit("a caption holds words outside the vocabulary or is too long")
-    log(f"served {n} requests; sample captions: {captions[:2]}")
-    log("stats " + json.dumps(stats))
+    log(f"[{mode}] served {n} requests; sample captions: {captions[:2]}")
+    log(f"[{mode}] stats " + json.dumps(stats))
     return singles + [it for b in batches for it in b], captions
+
+
+def check_served(plain_fn, requests, captions, vocab, device, mode):
+    """8 served captions against the plain version on the card, each at its
+    own 64-row batch and frame bucket (the kernels are padding-invariant)."""
+    from mvc_tpu_torch.data.dataset import _bucket
+    from mvc_tpu_torch.models.captioning import captions_from_tokens
+
+    agree = 0
+    for item, cap in list(zip(requests, captions))[:8]:
+        v = torch.tensor(item["visual"])
+        t = v.shape[0]
+        tp = _bucket(t, BUCKETS)
+        vis = torch.zeros(64, tp, 2048)
+        aud = torch.zeros(64, tp, 128)
+        m = torch.zeros(64, tp, dtype=torch.bool)
+        vis[0, :t], aud[0, :t], m[0, :t] = v, torch.tensor(item["audio"]), True
+        tok = plain_fn([vis.to(device), aud.to(device)], m.to(device))
+        agree += captions_from_tokens(vocab, tok[:1])[0] == cap
+    log(f"[{mode}] served captions equal to the plain version: {agree}/8")
+    if agree != 8:
+        raise SystemExit(f"served {mode} captions disagree with the plain version")
+
+
+def time_calls(call_k, call_p, call_launch):
+    """Mean ms of the wrapper, the plain version and the launch alone, in
+    turns (plain, kernel, launch, launch, kernel, plain), warm-up excluded."""
+    for fn in (call_k, call_p, call_launch):
+        fn()
+    torch.cuda.synchronize()
+    ms_k, ms_p, ms_l = [], [], []
+    for fn, out in ((call_p, ms_p), (call_k, ms_k), (call_launch, ms_l), (call_launch, ms_l),
+                    (call_k, ms_k), (call_p, ms_p)):
+        out.append(cuda_ms(fn, 5))
+    return tuple(float(np.mean(x)) for x in (ms_k, ms_p, ms_l))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    from mvc_tpu_torch.models.captioning import AVCaptioningDual, captions_from_tokens
+    from mvc_tpu_torch.config import EOS_ID, VISUAL_DECODER_CONFIG
+    from mvc_tpu_torch.models.captioning import AVCaptioningDual
+    from mvc_tpu_torch.models.decoder import init_decoder
     from mvc_tpu_torch.ops import _build
+    from mvc_tpu_torch.ops import _decode_common as dc
+    from mvc_tpu_torch.ops import beam as bm
     from mvc_tpu_torch.ops import dual_greedy as dg
 
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 matmuls in full float32
@@ -221,111 +316,152 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {src}: {line.strip()}")
 
-    # -- 3. kernel vs plain at full width
+    # -- 3. kernels vs plain at full width
     model = AVCaptioningDual(vocab_size=V, device=device)
     params = model.init(torch.Generator().manual_seed(0))
     decoders = spread_bias([params["v_decoder"], params["a_decoder"]], seed=1)
     vf, af, mask = decode_inputs(2, device)
     cells = ("LSTM", "LSTM")
-    max_err = check_kernel(dg, decoders, [vf, af], mask, cells, torch.float32, exact=True)
-    bf16 = [{k: {n: t.bfloat16() for n, t in sub.items()} for k, sub in p.items()}
-            for p in decoders]
-    check_kernel(dg, bf16, [vf, af], mask, cells, torch.bfloat16, exact=False)
-    from mvc_tpu_torch.config import VISUAL_DECODER_CONFIG
-    from mvc_tpu_torch.models.decoder import init_decoder
-
     gru_v = init_decoder(torch.Generator().manual_seed(3),
                          VISUAL_DECODER_CONFIG.replace(rnn_type="GRU", output_size=V),
                          device=device)
     mixed = spread_bias([gru_v, params["a_decoder"]], seed=4)
-    max_err = max(max_err, check_kernel(dg, mixed, [vf, af], mask, ("GRU", "LSTM"),
-                                        torch.float32, exact=True))
-    # a ragged batch (rows not a multiple of the kernel's row tile) whose
+    bf16 = [{k: {n: t.bfloat16() for n, t in sub.items()} for k, sub in p.items()}
+            for p in decoders]
+    # a ragged batch (rows not a multiple of the kernels' row tile) whose
     # small B*T puts the audio decoder on the factored branch too
     svf, saf, smask = decode_inputs(5, device, b=5, t=3)
-    if not dg._use_factored(5 * 3, 128, params["a_decoder"]["rnn"]["wh"].shape[1]):
+    if not dc._use_factored(5 * 3, 128, params["a_decoder"]["rnn"]["wh"].shape[1]):
         raise SystemExit("the small case no longer takes the audio factored branch")
-    max_err = max(max_err, check_kernel(dg, decoders, [svf, saf], smask, cells,
-                                        torch.float32, exact=True))
 
-    # -- 4. serving through the kernel; counts cover exactly this run
+    g_err = check_greedy(dg, decoders, [vf, af], mask, cells, torch.float32, exact=True)
+    check_greedy(dg, bf16, [vf, af], mask, cells, torch.bfloat16, exact=False)
+    g_err = max(g_err, check_greedy(dg, mixed, [vf, af], mask, ("GRU", "LSTM"),
+                                    torch.float32, exact=True))
+    g_err = max(g_err, check_greedy(dg, decoders, [svf, saf], smask, cells,
+                                    torch.float32, exact=True))
+
+    b_err, _, steps_main = check_beam(bm, decoders, [vf, af], mask, cells, torch.float32, 0.0,
+                                      True, device)
+    for alpha, dec_, cells_, feats_, mask_, label in (
+            (0.7, decoders, cells, [vf, af], mask, ""),
+            (0.0, mixed, ("GRU", "LSTM"), [vf, af], mask, ""),
+            (0.7, decoders, cells, [svf, saf], smask, "ragged "),
+            (0.0, decoders[:1], ("LSTM",), [vf], mask, "visual only ")):
+        err, _, _ = check_beam(bm, dec_, feats_, mask_, cells_, torch.float32, alpha, True,
+                               device, label)
+        b_err = max(b_err, err)
+    eos_heavy = spread_bias([params["v_decoder"], params["a_decoder"]], seed=5, eos_bias=2.0)
+    err, tok_eos, steps_eos = check_beam(bm, eos_heavy, [vf, af], mask, cells, torch.float32,
+                                         0.7, True, device, "EOS-heavy ")
+    b_err = max(b_err, err)
+    first_eos = (tok_eos[:, 1:] == EOS_ID).int().argmax(dim=1)
+    if not bool((tok_eos[:, 1:] == EOS_ID).any(dim=1).all()) or int(first_eos.max()) >= L // 2 \
+            or int(steps_eos.max()) >= L + 1:
+        raise SystemExit("the EOS-heavy case did not finish early: the early exit is not exercised")
+    log(f"EOS-heavy: first EOS by position {int(first_eos.max()) + 1}, "
+        f"steps per clip max {int(steps_eos.max())} of {L + 1}")
+    check_beam(bm, bf16, [vf, af], mask, cells, torch.bfloat16, 0.0, False, device, "bf16 ")
+
+    # -- 4. serving through the kernels; each count covers exactly its run
     vocab = synthetic_vocab(V)
     dg.dual_greedy_decode.launches = 0
-    requests, captions = serve(model, params, vocab, device)
-    launches = dg.dual_greedy_decode.launches
-    log(f"dual_greedy_decode launches during serving: {launches}")
-    if launches < 1:
-        raise SystemExit("the serving path never launched the dual_greedy kernel")
-    # served captions against the plain version on the card, one request per
-    # 64-row batch at its own frame bucket (the kernel is padding-invariant)
-    from mvc_tpu_torch.data.dataset import _bucket
+    requests, captions = serve(model, params, vocab, device, "direct")
+    g_launches = dg.dual_greedy_decode.launches
+    log(f"dual_greedy_decode launches during direct serving: {g_launches}")
+    if g_launches < 1:
+        raise SystemExit("the direct serving path never launched the dual_greedy kernel")
+    plain_params = [params["v_decoder"], params["a_decoder"]]
+    check_served(lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L),
+                 requests, captions, vocab, device, "direct")
 
-    agree = 0
-    for item, cap in list(zip(requests, captions))[:8]:
-        v = torch.tensor(item["visual"])
-        t = v.shape[0]
-        tp = _bucket(t, (8, 16, 32, 48, 64))
-        vis = torch.zeros(64, tp, 2048)
-        aud = torch.zeros(64, tp, 128)
-        m = torch.zeros(64, tp, dtype=torch.bool)
-        vis[0, :t], aud[0, :t], m[0, :t] = v, torch.tensor(item["audio"]), True
-        tok = dg.dual_greedy_decode_reference(
-            [params["v_decoder"], params["a_decoder"]], [vis.to(device), aud.to(device)],
-            m.to(device), L)
-        agree += captions_from_tokens(vocab, tok[:1])[0] == cap
-    log(f"served captions equal to the plain version: {agree}/8")
-    if agree != 8:
-        raise SystemExit("served captions disagree with the plain version")
+    bm.beam_decode.launches = 0
+    requests, captions = serve(model, params, vocab, device, "beam")
+    b_launches = bm.beam_decode.launches
+    log(f"beam_decode launches during beam serving: {b_launches}")
+    if b_launches < 1:
+        raise SystemExit("the beam serving path never launched the beam kernel")
+    check_served(lambda f, m: bm.beam_decode_reference(plain_params, f, m, L, W),
+                 requests, captions, vocab, device, "beam")
 
-    # -- 5. times (warm-up excluded), in turns: plain, kernel, kernel, plain
+    # -- 5. times (warm-up excluded)
     feats = [vf, af]
-    call_k = lambda: dg.dual_greedy_decode(decoders, feats, mask, L, torch.float32, cells)  # noqa: E731
-    call_p = lambda: dg.dual_greedy_decode_reference(decoders, feats, mask, L, torch.float32, cells)  # noqa: E731
-    args, _tok, keep = dg.prepare_kernel_call(decoders, feats, mask, L, torch.float32, cells)
-    call_launch = lambda: dg._launch(args, torch.float32, device)  # noqa: E731
-    for fn in (call_k, call_p, call_launch):
-        fn()
-    torch.cuda.synchronize()
-    ms_k, ms_p, ms_l = [], [], []
-    for order in ((call_p, ms_p), (call_k, ms_k), (call_launch, ms_l), (call_launch, ms_l),
-                  (call_k, ms_k), (call_p, ms_p)):
-        order[1].append(cuda_ms(order[0], 5))
-    ms_k, ms_p, ms_l = (float(np.mean(x)) for x in (ms_k, ms_p, ms_l))
-    flops_pre, flops_kernel, nbytes = function_work(decoders, cells, 4)
-    bound_fn = max((flops_pre + flops_kernel) / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_kernel = max(flops_kernel / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    f32 = torch.float32
+    g_args, _tok, g_keep = dg.prepare_kernel_call(decoders, feats, mask, L, f32, cells)
+    g_ms, g_plain, g_launch = time_calls(
+        lambda: dg.dual_greedy_decode(decoders, feats, mask, L, f32, cells),
+        lambda: dg.dual_greedy_decode_reference(decoders, feats, mask, L, f32, cells),
+        lambda: dg._launch(g_args, f32, device))
+    g_pre, g_kern, g_bytes = decode_work(decoders, (2048, 128), B * (L - 1), B * L, 4)
+    g_bound, g_bound_k, g_by = bounds(g_pre, g_kern, g_bytes)
     log(f"[{card}] dual_greedy_decode (wrapper: keys/P matmuls + kernel) f32 B={B} T={T} "
-        f"L={L} V={V}: {ms_k:.4f} ms")
-    log(f"[{card}] dual_greedy kernel launch alone: {ms_l:.4f} ms")
-    log(f"[{card}] plain PyTorch version: {ms_p:.4f} ms")
-    log(f"[{card}] bound (whole call, operations {(flops_pre + flops_kernel) / 1e9:.2f} GFLOP "
-        f"at 67 TFLOP/s f32; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s): {bound_fn:.4f} ms")
-    log(f"[{card}] bound (kernel alone, {flops_kernel / 1e9:.2f} GFLOP): {bound_kernel:.4f} ms")
-    # shared memory per block grows with T; the largest T the kernel takes
-    # at these widths (the wrapper raises above it)
+        f"L={L} V={V}: {g_ms:.4f} ms")
+    log(f"[{card}] dual_greedy kernel launch alone: {g_launch:.4f} ms")
+    log(f"[{card}] dual_greedy plain PyTorch version: {g_plain:.4f} ms")
+    log(f"[{card}] dual_greedy bound (whole call, operations {(g_pre + g_kern) / 1e9:.2f} GFLOP "
+        f"at 67 TFLOP/s f32; bytes {g_bytes / 1e6:.1f} MB at 3.35 TB/s): {g_bound:.4f} ms")
+    log(f"[{card}] dual_greedy bound (kernel alone, {g_kern / 1e9:.2f} GFLOP): {g_bound_k:.4f} ms")
     lib = dg._library()
-    smem = lib.dual_greedy_smem_bytes(ctypes.byref(args))
-    t_max = T
-    while True:
-        args.T = t_max + 1
-        if lib.dual_greedy_smem_bytes(ctypes.byref(args)) > dg.MAX_SMEM_BYTES:
-            break
-        t_max += 1
-    args.T = T
-    log(f"kernel shared memory per block at T={T}: {smem} bytes; largest T at these "
-        f"widths: {t_max}")
-    del keep
+    log(f"dual_greedy shared memory per block at T={T}: "
+        f"{lib.dual_greedy_smem_bytes(ctypes.byref(g_args))} bytes; largest T at these widths: "
+        f"{largest_t(lib.dual_greedy_smem_bytes, g_args, dc.MAX_SMEM_BYTES)}")
+    del g_keep
 
-    record = {"kernels": [{
-        "name": "dual_greedy_decode", "route": "cuda",
-        "source": "mvc_tpu_torch/csrc/dual_greedy.cu",
-        "replaces": "mvc_tpu/ops/pallas_dual_greedy.py:314",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_fn,
-        "bound_by": "operations" if (flops_pre + flops_kernel) / PEAK_F32_FLOPS
-        >= nbytes / PEAK_BYTES else "bytes",
-        "library_ms": None,
-    }]}
+    b_args, _tok, b_steps, b_keep = bm.prepare_kernel_call(decoders, feats, mask, L, W, 0.0,
+                                                           f32, cells)
+    b_ms, b_plain, b_launch = time_calls(
+        lambda: bm.beam_decode(decoders, feats, mask, L, W, 0.0, f32, cells),
+        lambda: bm.beam_decode_reference(decoders, feats, mask, L, W, 0.0, f32, cells),
+        lambda: bm._launch(b_args, f32, device))
+    torch.cuda.synchronize()
+    if not torch.equal(b_steps, steps_main):
+        raise SystemExit("the timed beam launches ran another number of steps")
+    row_steps = int(b_steps.sum()) * W
+    b_pre, b_kern, b_bytes = decode_work(decoders, (2048, 128), row_steps, B * (L + 2), 4)
+    b_bound, b_bound_k, b_by = bounds(b_pre, b_kern, b_bytes)
+    log(f"beam steps per clip (kernel, timed input): min {int(b_steps.min())} max "
+        f"{int(b_steps.max())} of {L + 1}; row-steps {row_steps}")
+    log(f"[{card}] beam_decode (wrapper: keys/P matmuls + kernel) f32 B={B} W={W} T={T} "
+        f"max_len={L} V={V}: {b_ms:.4f} ms")
+    log(f"[{card}] beam kernel launch alone: {b_launch:.4f} ms")
+    log(f"[{card}] beam plain PyTorch version: {b_plain:.4f} ms")
+    log(f"[{card}] beam bound (whole call, operations {(b_pre + b_kern) / 1e9:.2f} GFLOP at "
+        f"67 TFLOP/s f32; bytes {b_bytes / 1e6:.1f} MB at 3.35 TB/s): {b_bound:.4f} ms")
+    log(f"[{card}] beam bound (kernel alone, {b_kern / 1e9:.2f} GFLOP): {b_bound_k:.4f} ms")
+    blib = bm._library()
+    log(f"beam shared memory per block at T={T}: {blib.beam_smem_bytes(ctypes.byref(b_args))} "
+        f"bytes; largest T at these widths: "
+        f"{largest_t(blib.beam_smem_bytes, b_args, dc.MAX_SMEM_BYTES)}; largest W "
+        f"{blib.beam_max_width()}")
+    blib.beam_max_active_clusters.argtypes = [ctypes.POINTER(bm._BeamArgs), ctypes.c_int]
+    clusters = blib.beam_max_active_clusters(ctypes.byref(b_args), 0)
+    log(f"beam clusters resident at once: {clusters}, grid clusters at B={B}: "
+        f"{-(-B // (blib.beam_max_width() // W))}")
+    del b_keep
+    # the same search over the first 16 clips: a quarter of the clusters
+    b16 = [vf[:16].contiguous(), af[:16].contiguous()]
+    a16, _tok, _steps, keep16 = bm.prepare_kernel_call(decoders, b16, mask[:16].contiguous(), L,
+                                                       W, 0.0, f32, cells)
+    bm._launch(a16, f32, device)
+    ms16 = cuda_ms(lambda: bm._launch(a16, f32, device), 5)
+    log(f"[{card}] beam kernel launch alone at B=16 (steps max {int(_steps.max())}): "
+        f"{ms16:.4f} ms")
+    del keep16
+
+    record = {"kernels": [
+        {"name": "dual_greedy_decode", "route": "cuda",
+         "source": "mvc_tpu_torch/csrc/dual_greedy.cu",
+         "replaces": "mvc_tpu/ops/pallas_dual_greedy.py:314",
+         "launches": g_launches, "max_abs_err": g_err,
+         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
+         "library_ms": None},
+        {"name": "beam_decode", "route": "cuda",
+         "source": "mvc_tpu_torch/csrc/beam.cu",
+         "replaces": "mvc_tpu/ops/pallas_beam.py:578",
+         "launches": b_launches, "max_abs_err": b_err,
+         "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
+         "library_ms": None},
+    ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

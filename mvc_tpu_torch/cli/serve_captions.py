@@ -2,12 +2,14 @@
 
     python -m mvc_tpu_torch.cli.serve_captions --dataset MSVD \\
         --checkpoint checkpoints/MSVD/..._best.ckpt [--port 8000] [--max_batch 64] \\
-        [--device cuda|cpu]
+        [--mode direct|beam] [--beam_width 5] [--beam_alpha 0.0] [--device cuda|cpu]
 
 The port of ``scripts/serve_captions.py``: the same flags plus ``--device``.
 Reads checkpoints written by the JAX package's ``save_checkpoint``.  On the
-card the decode runs the hand-written CUDA kernel; ``--pallas`` is accepted
-for the same command line and changes nothing.  Endpoints: POST /caption,
+card the decode runs the hand-written CUDA kernels (``--mode direct``:
+``csrc/dual_greedy.cu``; ``--mode beam``: ``csrc/beam.cu``, beam width up
+to 8); ``--pallas`` is accepted for the same command line and changes
+nothing.  Endpoints: POST /caption,
 POST /caption_batch, GET /stats, GET /healthz (``serving/http.py``).
 """
 

@@ -1,6 +1,6 @@
 """Dual-stream captioner, the serving subset of ``mvc_tpu/models/captioning.py``:
 ``AVCaptioningDual`` (per-modality decoders whose log-probs are summed) with
-direct-mode ``predict_tokens``, the plain composition
+direct- and beam-mode ``predict_tokens``, the plain composition
 ``dual_greedy_tokens_fused`` and ``captions_from_tokens``.
 
 Like the JAX model it is a stateless config holder; parameters live in a
@@ -23,10 +23,17 @@ from mvc_tpu_torch.config import (
     DecoderConfig,
 )
 from mvc_tpu_torch.models import attention as attn
+from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
 from mvc_tpu_torch.models import rnn
+from mvc_tpu_torch.ops.beam import beam_decode
 from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode
 from mvc_tpu_torch.utils.device import resolve_device
+
+
+def _beam_init_state(rnn_type: str, B: int, W: int, H: int, dtype, device):
+    h = torch.zeros((B, W, H), dtype=dtype, device=device)
+    return (h, h) if rnn_type == "LSTM" else h
 
 
 def dual_greedy_tokens_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderConfig,
@@ -114,28 +121,60 @@ class AVCaptioningDual:
                        beam_alpha: float = 0.0, beam_width: int = 5,
                        feat_mask: Optional[torch.Tensor] = None,
                        stop_at_all_eos: bool = False) -> torch.Tensor:
-        """Token ids [B, max_caption_len] (column 0 = 0).
+        """Token ids.  Direct mode: [B, max_caption_len], column 0 = 0; each
+        decoder free-runs on its own argmax and the fused log-probs are
+        argmaxed.  Beam mode: [B, max_caption_len + 2], column 0 = SOS; one
+        beam search over the summed log-probs of both decoders.
 
-        Direct mode: each decoder free-runs on its own argmax and the fused
-        log-probs are argmaxed.  CUDA tensors run the hand-written kernel
-        (fixed schedule: ``stop_at_all_eos`` is ignored, caption text is
-        the same); CPU tensors run ``dual_greedy_tokens_fused``."""
-        if mode == "beam":
-            raise NotImplementedError(
-                "beam mode is not ported yet: it arrives with the beam slice "
-                "(mvc_tpu/ops/pallas_beam.py:beam_decode_pallas)")
-        if mode != "direct":
+        CUDA tensors run the hand-written kernels (direct: fixed schedule,
+        ``stop_at_all_eos`` is ignored and the caption text is the same);
+        CPU tensors run ``dual_greedy_tokens_fused`` or ``beam_search``.
+        ``stop_at_all_eos`` applies to direct mode only."""
+        if mode not in ("direct", "beam"):
             raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
         if visual.device != self.device or audio.device != self.device:
             raise ValueError(f"features must be on the model's device {self.device}")
+        rnn_types = (self.v_config.rnn_type, self.a_config.rnn_type)
         if visual.device.type == "cuda":
             decoders = [dec.cast_params_for_decode(params["v_decoder"], self.dtype),
                         dec.cast_params_for_decode(params["a_decoder"], self.dtype)]
-            return dual_greedy_decode(
-                decoders, [visual, audio], feat_mask, max_caption_len,
-                weight_dtype=self.dtype,
-                rnn_types=(self.v_config.rnn_type, self.a_config.rnn_type))
-        return dual_greedy_tokens_fused(
-            params["v_decoder"], params["a_decoder"], self.v_config, self.a_config,
-            visual, audio, max_caption_len=max_caption_len, feat_mask=feat_mask,
-            dtype=self.dtype, stop_at_all_eos=stop_at_all_eos)
+            if mode == "beam":
+                return beam_decode(decoders, [visual, audio], feat_mask, max_caption_len,
+                                   beam_width, beam_alpha, weight_dtype=self.dtype,
+                                   rnn_types=rnn_types)
+            return dual_greedy_decode(decoders, [visual, audio], feat_mask, max_caption_len,
+                                      weight_dtype=self.dtype, rnn_types=rnn_types)
+        if mode == "direct":
+            return dual_greedy_tokens_fused(
+                params["v_decoder"], params["a_decoder"], self.v_config, self.a_config,
+                visual, audio, max_caption_len=max_caption_len, feat_mask=feat_mask,
+                dtype=self.dtype, stop_at_all_eos=stop_at_all_eos)
+        return self._beam_tokens(params, audio, visual, max_caption_len, beam_alpha,
+                                 beam_width, feat_mask)
+
+    def _beam_tokens(self, params, audio, visual, max_caption_len, beam_alpha, beam_width,
+                     feat_mask):
+        """The joint beam over summed log-probs (``captioning.py:803-832``)."""
+        B, dtype = visual.shape[0], self.dtype
+        v_params = dec.cast_params_for_decode(params["v_decoder"], dtype)
+        a_params = dec.cast_params_for_decode(params["a_decoder"], dtype)
+        v_feats, a_feats = visual.to(dtype), audio.to(dtype)
+        v_keys = attn.precompute_keys(v_params["attention"], v_feats)
+        a_keys = attn.precompute_keys(a_params["attention"], a_feats)
+        v_P = dec.factored_P(v_params, v_feats, dtype)
+        a_P = dec.factored_P(a_params, a_feats, dtype)
+
+        def step_fn(prev, state):
+            v_state, a_state = state
+            v_logp, v_new = dec.decoder_beam_step(v_params, self.v_config, prev, v_state,
+                                                  v_feats, v_keys, feat_mask, dtype, P=v_P)
+            a_logp, a_new = dec.decoder_beam_step(a_params, self.a_config, prev, a_state,
+                                                  a_feats, a_keys, feat_mask, dtype, P=a_P)
+            return v_logp + a_logp, (v_new, a_new)
+
+        init_state = tuple(
+            _beam_init_state(c.rnn_type, B, beam_width, c.rnn_hidden_size, dtype, visual.device)
+            for c in (self.v_config, self.a_config))
+        return beam_mod.beam_search(step_fn, init_state, B, self.vocab_size,
+                                    max_caption_len=max_caption_len, beam_alpha=beam_alpha,
+                                    beam_width=beam_width)

@@ -18,7 +18,7 @@ from mvc_tpu_torch.config import DecoderConfig
 from mvc_tpu_torch.models import attention as attn
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.models.initializers import embedding_params, linear_params
-from mvc_tpu_torch.ops.dual_greedy import _use_factored
+from mvc_tpu_torch.ops._decode_common import _use_factored
 
 
 def cast_params_for_decode(params, dtype):
@@ -49,7 +49,7 @@ def init_decoder(gen: torch.Generator, cfg: DecoderConfig, dtype=torch.float32, 
 
 def factored_P(params, feats: torch.Tensor, dtype) -> Optional[torch.Tensor]:
     """P = feats @ wi_ctx [B, T, G*H] for the factored-context decode, or
-    None when the direct path is cheaper (``ops.dual_greedy._use_factored``)."""
+    None when the direct path is cheaper (``ops._decode_common._use_factored``)."""
     wi = params["rnn"]["wi"]
     E = params["embedding"]["table"].shape[1]
     B, T, F = feats.shape
@@ -81,3 +81,38 @@ def decoder_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
     logits = (h_new @ rnn.wmat(params["out"]["w"], dtype)
               + params["out"]["b"].to(dtype)).float()
     return torch.log_softmax(logits, dim=-1), new_state, weights
+
+
+def decoder_beam_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
+                      feats: torch.Tensor, keys: torch.Tensor,
+                      feat_mask: Optional[torch.Tensor], dtype=torch.float32,
+                      P: Optional[torch.Tensor] = None):
+    """Beam-batched word step (``mvc_tpu/models/decoder.py:393-431``): state
+    leaves are [B, W, H] and the keys [B, T, A] are broadcast over the beam
+    axis.  With ``P`` [B, T, G*H] the context rows of ``wi`` are replaced by
+    the attention-weighted sum over P.
+
+    Returns (log_probs [B, W, V] float32, new_state)."""
+    ap = params["attention"]
+    embedded = params["embedding"]["table"][prev_tokens].to(dtype)            # [B, W, E]
+    h = rnn.state_hidden(cfg.rnn_type, state)                                 # [B, W, H]
+    query = h @ ap["W"].to(dtype)                                             # [B, W, A]
+    energies = torch.tanh(
+        query[:, :, None, :] + keys[:, None, :, :] + ap["b"].to(dtype)
+    ) @ ap["w"].to(dtype)                                                     # [B, W, T]
+    mask = feat_mask[:, None, :].expand_as(energies) if feat_mask is not None else None
+    weights = attn.masked_softmax(energies, mask, dim=-1)
+    if P is not None:
+        E = embedded.shape[-1]
+        wi = params["rnn"]["wi"]
+        gi = (embedded @ wi[:E].to(dtype) + params["rnn"]["bi"].to(dtype)
+              + torch.einsum("bwt,bth->bwh", weights, P))
+        _, new_state = rnn.rnn_step_pre(params["rnn"], cfg.rnn_type, gi, state)
+    else:
+        context = torch.einsum("bwt,btf->bwf", weights, feats)                # [B, W, F]
+        x = torch.cat([embedded, context.to(dtype)], dim=-1)
+        _, new_state = rnn.rnn_step(params["rnn"], cfg.rnn_type, x, state)
+    h_new = rnn.state_hidden(cfg.rnn_type, new_state)
+    logits = (h_new @ rnn.wmat(params["out"]["w"], dtype)
+              + params["out"]["b"].to(dtype)).float()
+    return torch.log_softmax(logits, dim=-1), new_state

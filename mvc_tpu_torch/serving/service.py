@@ -46,13 +46,14 @@ class ServiceConfig:
     max_wait_ms: float = 5.0
     frame_buckets: Sequence[int] = (8, 16, 32, 48, 64)
     max_caption_len: int = 30
-    mode: str = "direct"  # "direct" ("beam" is not ported yet)
+    mode: str = "direct"  # "direct" | "beam"
     beam_width: int = 5
     beam_alpha: float = 0.0
     audio_dim: int = 128
     visual_dim: int = 2048
     # direct mode on the CPU path stops once every row has emitted EOS
-    # (caption text identical); the CUDA kernel runs a fixed schedule
+    # (caption text identical); the CUDA kernel runs a fixed schedule; beam
+    # mode ignores it
     stop_at_all_eos: bool = True
     latency_window: int = 2048  # latencies kept for the percentile stats
     # device batches in flight: 1 = launch, sync, repeat; 2 overlaps host
@@ -108,10 +109,7 @@ class CaptionService:
     def __init__(self, model, params, vocab, config: Optional[ServiceConfig] = None,
                  device="cuda"):
         self.config = config or ServiceConfig()
-        if self.config.mode == "beam":
-            raise NotImplementedError(
-                "beam mode is not ported yet: it arrives with the beam slice")
-        if self.config.mode != "direct":
+        if self.config.mode not in ("direct", "beam"):
             raise ValueError(f"unknown mode {self.config.mode!r}")
         if self.config.transfer in ("bf16", "int8"):
             raise ValueError(f"transfer={self.config.transfer!r} is not ported yet; use 'f32'")

@@ -26,11 +26,8 @@ from mvc_tpu.ops.pallas_dual_greedy import dual_greedy_decode_pallas
 from mvc_tpu_torch.config import DecoderConfig as TorchDecoderConfig
 from mvc_tpu_torch.models.captioning import AVCaptioningDual
 from mvc_tpu_torch.models.captioning import dual_greedy_tokens_fused
-from mvc_tpu_torch.ops.dual_greedy import (
-    _use_factored,
-    dual_greedy_decode,
-    dual_greedy_decode_reference,
-)
+from mvc_tpu_torch.ops._decode_common import _use_factored
+from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode, dual_greedy_decode_reference
 from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
 
 V = 29

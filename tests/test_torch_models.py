@@ -145,7 +145,7 @@ def test_factored_P_follows_the_rule():
     """factored_P is taken exactly where _use_factored says (wide features
     at small B*T), in both packages."""
     from mvc_tpu.ops.pallas_beam import _use_factored as jax_rule
-    from mvc_tpu_torch.ops.dual_greedy import _use_factored
+    from mvc_tpu_torch.ops._decode_common import _use_factored
 
     for bt in (1, 20, 137, 138, 1024, 4096):
         for f, h4 in ((2048, 2048), (128, 2048), (24, 64), (12, 128)):

@@ -159,16 +159,60 @@ def test_card_is_the_default(tiny, monkeypatch):
 
 def test_unported_modes_raise(tiny):
     _, _, params, model, vocab = tiny
-    with pytest.raises(NotImplementedError):
-        CaptionService(model, params, vocab, ServiceConfig(**dict(SERVICE, mode="beam")),
-                       device="cpu")
     for transfer in ("bf16", "int8"):
         with pytest.raises(ValueError):
             CaptionService(model, params, vocab,
                            ServiceConfig(**dict(SERVICE, transfer=transfer)), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        CaptionService(model, params, vocab, ServiceConfig(**dict(SERVICE, mode="sample")),
+                       device="cpu")
+    with pytest.raises(ValueError):
         model.predict_tokens(from_numpy_tree(params), torch.zeros(1, 4, A_DIM),
-                             torch.zeros(1, 4, V_DIM), mode="beam")
+                             torch.zeros(1, 4, V_DIM), mode="sample")
+
+
+def test_beam_service_matches_jax_service(tiny):
+    jmodel, jvocab, params, model, vocab = tiny
+    reqs = _requests(3, 6)
+    cfg = dict(SERVICE, mode="beam", beam_width=3, beam_alpha=0.7)
+    with JaxService(jmodel, jax.tree.map(jax.numpy.asarray, params), jvocab,
+                    JaxServiceConfig(**cfg)) as svc:
+        want = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+    with CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**cfg),
+                        device="cpu") as svc:
+        got = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+        stats = svc.stats()
+    assert got == want
+    assert len(set(got)) > 1
+    assert stats["mode"] == "beam" and stats["requests"] == 6 and stats["batches"] < 6
+
+
+def test_cli_beam_flags_reach_the_service(tiny, tmp_path, monkeypatch):
+    """``--mode beam --beam_width --beam_alpha`` build a beam service."""
+    jmodel, jvocab, params, model, vocab = tiny
+    jvocab.save(str(tmp_path / "vocab.json"))
+    import mvc_tpu_torch.serving as serving
+    import mvc_tpu_torch.training.checkpoint as checkpoint
+    from mvc_tpu_torch.cli import serve_captions
+
+    monkeypatch.setattr(checkpoint, "load_checkpoint", lambda path: {"params": params})
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def capture(service, **kw):
+        built.append(service)
+        raise Stop
+
+    monkeypatch.setattr(serving, "make_http_server", capture)
+    with pytest.raises(Stop):
+        serve_captions.main(["--checkpoint", "any.ckpt", "--vocab", str(tmp_path / "vocab.json"),
+                             "--mode", "beam", "--beam_width", "3", "--beam_alpha", "0.7",
+                             "--no_warmup", "--device", "cpu"])
+    (svc,) = built
+    svc.close()
+    assert (svc.config.mode, svc.config.beam_width, svc.config.beam_alpha) == ("beam", 3, 0.7)
 
 
 def test_package_imports_no_jax():
@@ -176,6 +220,7 @@ def test_package_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import mvc_tpu_torch\n"
+        "import mvc_tpu_torch.ops.beam, mvc_tpu_torch.models.beam\n"
         "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mvc_tpu')"
