@@ -10,12 +10,15 @@ its own failure:
 2. build every CUDA source of ``mvc_tpu_torch/csrc`` with nvcc for sm_90a,
    one nvcc per source, all started together
 3. each kernel against its plain PyTorch version on the card, at the
-   serving shape (B=64, T=16, max_len=30, V=4000, full widths; beam W=5)
-4. serving: ``AVCaptioningDual`` at full width with seeded random weights,
-   ``CaptionService(max_batch=64)`` behind ``make_http_server``, a few dozen
-   requests through ``POST /caption`` and ``/caption_batch``, once in direct
-   mode and once in beam mode; each kernel's launch count is set to 0 just
-   before its mode's run and read just after
+   serving shape (B=64, T=16, max_len=30, V=4000, full widths; beam W=5):
+   the dual model's two decoders (``dual_greedy.cu``, ``beam.cu``) and the
+   single model's one decoder over [audio | visual], F=2176 (``greedy.cu``,
+   ``beam.cu`` with one decoder)
+4. serving: ``AVCaptioningDual``, then ``AVCaptioning``, at full width with
+   seeded random weights, ``CaptionService(max_batch=64)`` behind
+   ``make_http_server``, a few dozen requests through ``POST /caption`` and
+   ``/caption_batch``, once in direct mode and once in beam mode; each
+   kernel's launch count is set to 0 just before its run and read just after
 5. times with CUDA events (warm-up excluded): kernel, plain version, bound
 
 The line before the last is the kernels' JSON record; the last line is the
@@ -38,6 +41,7 @@ import torch
 V, B, T, L = 4000, 64, 16, 30
 W = 5                        # beam width of the beam phases
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32, outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BUCKETS = (8, 16, 32, 48, 64)
 
@@ -123,11 +127,13 @@ def decode_work(decoders, feat_dims, row_steps, out_elems, weight_bytes, b=B, t=
     return flops_pre, flops_kernel, nbytes
 
 
-def bounds(flops_pre, flops_kernel, nbytes):
-    """(whole call ms, kernel alone ms, bound_by) at the card's peaks."""
-    whole = max((flops_pre + flops_kernel) / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    kernel = max(flops_kernel / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    by = "operations" if (flops_pre + flops_kernel) / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+def bounds(flops_pre, flops_kernel, nbytes, peak_flops=PEAK_F32_FLOPS):
+    """(whole call ms, kernel alone ms, bound_by) at the card's peaks:
+    float32 products at the float32 rate, bf16 ones (bf16 operands, float32
+    sums) at the bf16 tensor-core rate."""
+    whole = max((flops_pre + flops_kernel) / peak_flops, nbytes / PEAK_BYTES) * 1e3
+    kernel = max(flops_kernel / peak_flops, nbytes / PEAK_BYTES) * 1e3
+    by = "operations" if (flops_pre + flops_kernel) / peak_flops >= nbytes / PEAK_BYTES else "bytes"
     return whole, kernel, by
 
 
@@ -144,21 +150,38 @@ def largest_t(lib_fn, args, limit):
     return t_max
 
 
-def check_greedy(dg, decoders, feats, mask, cells, dtype, exact):
-    tok_k = dg.dual_greedy_decode(decoders, feats, mask, L, dtype, cells)
+def check_greedy(name, kernel_fn, plain_fn, label, mask, exact):
+    """A greedy kernel's tokens against its plain version's on the same
+    inputs; ``exact`` requires every token equal."""
+    tok_k = kernel_fn()
     torch.cuda.synchronize()
-    tok_p = dg.dual_greedy_decode_reference(decoders, feats, mask, L, dtype, cells)
+    tok_p = plain_fn()
     same = (tok_k == tok_p).float().mean().item()
     err = (tok_k.long() - tok_p.long()).abs().max().item()
-    log(f"dual_greedy kernel vs plain {cells} {dtype} B={mask.shape[0]} T={mask.shape[1]}: "
+    log(f"{name} kernel vs plain {label} B={mask.shape[0]} T={mask.shape[1]}: "
         f"equal tokens {same:.6f}, "
         f"unique tokens {len(torch.unique(tok_p[:, 1:]))}, column 0 zero "
         f"{bool((tok_k[:, 0] == 0).all())}")
-    if not bool((tok_k[:, 0] == 0).all()) or ((tok_k < 0) | (tok_k >= V)).any():
-        raise SystemExit("dual_greedy kernel tokens break the output contract")
+    if (tok_k.shape != (mask.shape[0], L) or not bool((tok_k[:, 0] == 0).all())
+            or ((tok_k < 0) | (tok_k >= V)).any()):
+        raise SystemExit(f"{name} kernel tokens break the output contract")
     if exact and same != 1.0:
-        raise SystemExit(f"dual_greedy kernel disagrees with its plain version ({cells}, {dtype})")
+        raise SystemExit(f"{name} kernel disagrees with its plain version ({label})")
     return float(err)
+
+
+def check_dual_greedy(dg, decoders, feats, mask, cells, dtype, exact):
+    return check_greedy(
+        "dual_greedy", lambda: dg.dual_greedy_decode(decoders, feats, mask, L, dtype, cells),
+        lambda: dg.dual_greedy_decode_reference(decoders, feats, mask, L, dtype, cells),
+        f"{cells} {dtype}", mask, exact)
+
+
+def check_single_greedy(gr, decoder, feats, mask, cell, dtype, exact, label=""):
+    return check_greedy(
+        "greedy", lambda: gr.greedy_decode(decoder, feats, mask, L, dtype, cell),
+        lambda: gr.greedy_decode_reference(decoder, feats, mask, L, dtype, cell),
+        f"{label}{cell} F={feats.shape[2]} {dtype}", mask, exact)
 
 
 def check_beam(bm, decoders, feats, mask, cells, dtype, alpha, exact, device, label=""):
@@ -186,9 +209,10 @@ def check_beam(bm, decoders, feats, mask, cells, dtype, alpha, exact, device, la
     return float(err), tok_p, steps_p
 
 
-def serve(model, params, vocab, device, mode):
+def serve(model, params, vocab, device, mode, label=""):
     from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
 
+    tag = f"{label}{mode}"
     rng = np.random.default_rng(0)
 
     def clip():
@@ -215,7 +239,7 @@ def serve(model, params, vocab, device, mode):
     try:
         t0 = time.perf_counter()
         warmed = svc.warmup()
-        log(f"[{mode}] warmup t_pads {warmed} in {time.perf_counter() - t0:.2f} s")
+        log(f"[{tag}] warmup t_pads {warmed} in {time.perf_counter() - t0:.2f} s")
         svc.reset_stats()
         results, errors = [None] * len(singles), []
 
@@ -246,8 +270,8 @@ def serve(model, params, vocab, device, mode):
     words = {w for c in captions for w in c.split()}
     if not words <= set(vocab.itos.values()) or max(len(c.split()) for c in captions) > L + 1:
         raise SystemExit("a caption holds words outside the vocabulary or is too long")
-    log(f"[{mode}] served {n} requests; sample captions: {captions[:2]}")
-    log(f"[{mode}] stats " + json.dumps(stats))
+    log(f"[{tag}] served {n} requests; sample captions: {captions[:2]}")
+    log(f"[{tag}] stats " + json.dumps(stats))
     return singles + [it for b in batches for it in b], captions
 
 
@@ -290,13 +314,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    from mvc_tpu_torch.config import EOS_ID, VISUAL_DECODER_CONFIG
-    from mvc_tpu_torch.models.captioning import AVCaptioningDual
+    from mvc_tpu_torch.config import EOS_ID, SINGLE_DECODER_CONFIG, VISUAL_DECODER_CONFIG
+    from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual
     from mvc_tpu_torch.models.decoder import init_decoder
     from mvc_tpu_torch.ops import _build
     from mvc_tpu_torch.ops import _decode_common as dc
     from mvc_tpu_torch.ops import beam as bm
     from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import greedy as gr
 
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 matmuls in full float32
     torch.backends.cudnn.allow_tf32 = False
@@ -334,12 +359,32 @@ def main() -> int:
     if not dc._use_factored(5 * 3, 128, params["a_decoder"]["rnn"]["wh"].shape[1]):
         raise SystemExit("the small case no longer takes the audio factored branch")
 
-    g_err = check_greedy(dg, decoders, [vf, af], mask, cells, torch.float32, exact=True)
-    check_greedy(dg, bf16, [vf, af], mask, cells, torch.bfloat16, exact=False)
-    g_err = max(g_err, check_greedy(dg, mixed, [vf, af], mask, ("GRU", "LSTM"),
-                                    torch.float32, exact=True))
-    g_err = max(g_err, check_greedy(dg, decoders, [svf, saf], smask, cells,
-                                    torch.float32, exact=True))
+    g_err = check_dual_greedy(dg, decoders, [vf, af], mask, cells, torch.float32, exact=True)
+    check_dual_greedy(dg, bf16, [vf, af], mask, cells, torch.bfloat16, exact=False)
+    g_err = max(g_err, check_dual_greedy(dg, mixed, [vf, af], mask, ("GRU", "LSTM"),
+                                         torch.float32, exact=True))
+    g_err = max(g_err, check_dual_greedy(dg, decoders, [svf, saf], smask, cells,
+                                         torch.float32, exact=True))
+
+    # the single model: one decoder over [audio | visual], F=2176 (always
+    # factored); the audio-width decoder alone takes the direct branch
+    single = AVCaptioning(vocab_size=V, device=device)
+    sparams = single.init(torch.Generator().manual_seed(10))
+    s_dec = spread_bias([sparams["decoder"]], seed=11)[0]
+    s_gru = spread_bias([init_decoder(torch.Generator().manual_seed(12),
+                                      SINGLE_DECODER_CONFIG.replace(rnn_type="GRU", output_size=V),
+                                      device=device)], seed=13)[0]
+    sf, ssf = torch.cat([af, vf], dim=-1), torch.cat([saf, svf], dim=-1)
+    s_bf16 = {k: {n: t.bfloat16() for n, t in sub.items()} for k, sub in s_dec.items()}
+    if dc._use_factored(B * T, 128, params["a_decoder"]["rnn"]["wh"].shape[1]):
+        raise SystemExit("the audio-width decoder no longer takes the direct branch at B*T")
+    f32 = torch.float32
+    s_err = check_single_greedy(gr, s_dec, sf, mask, "LSTM", f32, True, "AVCaptioning ")
+    s_err = max(s_err, check_single_greedy(gr, s_gru, sf, mask, "GRU", f32, True))
+    s_err = max(s_err, check_single_greedy(gr, decoders[1], af, mask, "LSTM", f32, True,
+                                           "audio decoder alone, direct branch, "))
+    s_err = max(s_err, check_single_greedy(gr, s_dec, ssf, smask, "LSTM", f32, True, "ragged "))
+    check_single_greedy(gr, s_bf16, sf, mask, "LSTM", torch.bfloat16, False, "AVCaptioning ")
 
     b_err, _, steps_main = check_beam(bm, decoders, [vf, af], mask, cells, torch.float32, 0.0,
                                       True, device)
@@ -362,6 +407,9 @@ def main() -> int:
     log(f"EOS-heavy: first EOS by position {int(first_eos.max()) + 1}, "
         f"steps per clip max {int(steps_eos.max())} of {L + 1}")
     check_beam(bm, bf16, [vf, af], mask, cells, torch.bfloat16, 0.0, False, device, "bf16 ")
+    err, _, s_steps_main = check_beam(bm, [s_dec], [sf], mask, ("LSTM",), f32, 0.0, True,
+                                      device, "AVCaptioning F=2176 ")
+    b_err = max(b_err, err)
 
     # -- 4. serving through the kernels; each count covers exactly its run
     vocab = synthetic_vocab(V)
@@ -384,9 +432,32 @@ def main() -> int:
     check_served(lambda f, m: bm.beam_decode_reference(plain_params, f, m, L, W),
                  requests, captions, vocab, device, "beam")
 
+    # the single model, direct then beam; the service concatenates nothing:
+    # AVCaptioning.predict_tokens does, audio first
+    def single_feats(f):
+        return torch.cat([f[1], f[0]], dim=-1)
+
+    gr.greedy_decode.launches = 0
+    requests, captions = serve(single, sparams, vocab, device, "direct", "single ")
+    s_launches = gr.greedy_decode.launches
+    log(f"greedy_decode launches during single-model direct serving: {s_launches}")
+    if s_launches < 1:
+        raise SystemExit("the single-model direct serving path never launched the greedy kernel")
+    check_served(lambda f, m: gr.greedy_decode_reference(sparams["decoder"], single_feats(f), m, L),
+                 requests, captions, vocab, device, "single direct")
+
+    bm.beam_decode.launches = 0
+    requests, captions = serve(single, sparams, vocab, device, "beam", "single ")
+    sb_launches = bm.beam_decode.launches
+    log(f"beam_decode launches during single-model beam serving: {sb_launches}")
+    if sb_launches < 1:
+        raise SystemExit("the single-model beam serving path never launched the beam kernel")
+    check_served(lambda f, m: bm.beam_decode_reference([sparams["decoder"]], [single_feats(f)], m,
+                                                       L, W, rnn_types=("LSTM",)),
+                 requests, captions, vocab, device, "single beam")
+
     # -- 5. times (warm-up excluded)
     feats = [vf, af]
-    f32 = torch.float32
     g_args, _tok, g_keep = dg.prepare_kernel_call(decoders, feats, mask, L, f32, cells)
     g_ms, g_plain, g_launch = time_calls(
         lambda: dg.dual_greedy_decode(decoders, feats, mask, L, f32, cells),
@@ -448,6 +519,53 @@ def main() -> int:
         f"{ms16:.4f} ms")
     del keep16
 
+    # the single model's greedy kernel, f32 (the record's) and bf16 (bench.py's greedy dtype)
+    s_times = {}
+    for wd, dec_, peak in ((f32, s_dec, PEAK_F32_FLOPS), (torch.bfloat16, s_bf16, PEAK_BF16_FLOPS)):
+        s_args, _tok, s_keep = gr.prepare_kernel_call(dec_, sf, mask, L, wd, "LSTM")
+        ms, plain, launch = time_calls(
+            lambda: gr.greedy_decode(dec_, sf, mask, L, wd, "LSTM"),
+            lambda: gr.greedy_decode_reference(dec_, sf, mask, L, wd, "LSTM"),
+            lambda: gr._launch(s_args, wd, device))
+        nbytes_w = 4 if wd == f32 else 2
+        pre, kern, nbytes = decode_work([dec_], (2176,), B * (L - 1), B * L, nbytes_w)
+        bound, bound_k, by = bounds(pre, kern, nbytes, peak)
+        s_times[wd] = (ms, plain, bound, by)
+        peak_txt = "67 TFLOP/s f32" if wd == f32 else "989 TFLOP/s bf16"
+        log(f"[{card}] greedy_decode (wrapper: keys/P matmuls + kernel) {wd} AVCaptioning "
+            f"F=2176 B={B} T={T} L={L} V={V}: {ms:.4f} ms")
+        log(f"[{card}] greedy kernel launch alone {wd}: {launch:.4f} ms")
+        log(f"[{card}] greedy plain PyTorch version {wd}: {plain:.4f} ms")
+        log(f"[{card}] greedy bound {wd} (whole call, operations {(pre + kern) / 1e9:.2f} GFLOP "
+            f"at {peak_txt}; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s): {bound:.4f} ms")
+        log(f"[{card}] greedy bound {wd} (kernel alone, {kern / 1e9:.2f} GFLOP): {bound_k:.4f} ms")
+        if wd == f32:
+            slib = gr._library()
+            log(f"greedy shared memory per block at T={T}: "
+                f"{slib.greedy_smem_bytes(ctypes.byref(s_args))} bytes; largest T at these "
+                f"widths: {largest_t(slib.greedy_smem_bytes, s_args, dc.MAX_SMEM_BYTES)}")
+        del s_keep
+    s_ms, s_plain, s_bound, s_by = s_times[f32]
+
+    # the single model's beam: beam.cu with one decoder at F=2176
+    sb_args, _tok, sb_steps, sb_keep = bm.prepare_kernel_call([s_dec], [sf], mask, L, W, 0.0,
+                                                              f32, ("LSTM",))
+    sb_ms, sb_plain, sb_launch = time_calls(
+        lambda: bm.beam_decode([s_dec], [sf], mask, L, W, 0.0, f32, ("LSTM",)),
+        lambda: bm.beam_decode_reference([s_dec], [sf], mask, L, W, 0.0, f32, ("LSTM",)),
+        lambda: bm._launch(sb_args, f32, device))
+    torch.cuda.synchronize()
+    if not torch.equal(sb_steps, s_steps_main):
+        raise SystemExit("the timed single-model beam launches ran another number of steps")
+    row_steps = int(sb_steps.sum()) * W
+    pre, kern, nbytes = decode_work([s_dec], (2176,), row_steps, B * (L + 2), 4)
+    sb_bound, sb_bound_k, _ = bounds(pre, kern, nbytes)
+    log(f"[{card}] beam_decode one decoder AVCaptioning F=2176 f32 B={B} W={W} T={T} "
+        f"max_len={L} V={V} (steps max {int(sb_steps.max())}): wrapper {sb_ms:.4f} ms, "
+        f"kernel launch alone {sb_launch:.4f} ms, plain {sb_plain:.4f} ms, bound "
+        f"{sb_bound:.4f} ms whole call / {sb_bound_k:.4f} ms kernel ({kern / 1e9:.2f} GFLOP)")
+    del sb_keep
+
     record = {"kernels": [
         {"name": "dual_greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/dual_greedy.cu",
@@ -460,6 +578,12 @@ def main() -> int:
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
          "launches": b_launches, "max_abs_err": b_err,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
+         "library_ms": None},
+        {"name": "greedy_decode", "route": "cuda",
+         "source": "mvc_tpu_torch/csrc/greedy.cu",
+         "replaces": "mvc_tpu/ops/pallas_decode.py:366",
+         "launches": s_launches, "max_abs_err": s_err,
+         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None},
     ]}
     print(json.dumps(record), flush=True)

@@ -3,6 +3,7 @@
 A package of its own beside the JAX one: it imports ``torch`` and never
 ``jax`` or anything of ``mvc_tpu``.  Module paths and names follow the JAX
 package so each port can be read against its reference.  The decode hot
-path runs a hand-written CUDA kernel (``ops/dual_greedy.py``); every entry
-point runs on the card unless the caller passes ``device="cpu"``.
+paths run hand-written CUDA kernels (``ops/dual_greedy.py``,
+``ops/greedy.py``, ``ops/beam.py``); every entry point runs on the card
+unless the caller passes ``device="cpu"``.
 """

@@ -1,6 +1,6 @@
-"""Decoder configuration: the port's own copy of the special ids and the dual
-model's per-modality decoder configs (``mvc_tpu/config.py:24-59``), with the
-same default values."""
+"""Decoder configuration: the port's own copy of the special ids, the single
+model's decoder config and the dual model's per-modality decoder configs
+(``mvc_tpu/config.py:24-59``), with the same default values."""
 
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ class DecoderConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The single-stream model's decoder: [audio | visual] concatenated, F=2176.
+SINGLE_DECODER_CONFIG = DecoderConfig()
 # The dual model's per-modality decoder configs.
 VISUAL_DECODER_CONFIG = DecoderConfig(in_feature_size=VISUAL_FEATURE_DIM)
 AUDIO_DECODER_CONFIG = DecoderConfig(in_feature_size=AUDIO_FEATURE_DIM, output_size=512)

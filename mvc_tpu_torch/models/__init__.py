@@ -1,1 +1,5 @@
-"""Model parts of the port: attention, RNN cells, decoder, the dual captioner."""
+"""Model parts of the port: attention, RNN cells, decoder, the captioners."""
+
+from mvc_tpu_torch.models.captioning import AVCaptioning, AVCaptioningDual
+
+__all__ = ["AVCaptioning", "AVCaptioningDual"]

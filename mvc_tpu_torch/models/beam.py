@@ -13,7 +13,7 @@ scan, which replicates the reference's beam search:
   with every beam finished (every later step would only re-sort beams and
   write token 0); the result is ``[SOS] + beam 0's tokens``
 
-This is the CPU path of ``AVCaptioningDual.predict_tokens(mode="beam")``;
+This is the CPU path of ``predict_tokens(mode="beam")`` of both captioners;
 on the card the search runs in ``ops/beam.py``'s kernel.
 """
 

@@ -1,11 +1,13 @@
-"""Dual-stream captioner, the serving subset of ``mvc_tpu/models/captioning.py``:
-``AVCaptioningDual`` (per-modality decoders whose log-probs are summed) with
-direct- and beam-mode ``predict_tokens``, the plain composition
-``dual_greedy_tokens_fused`` and ``captions_from_tokens``.
+"""Captioners, the serving subset of ``mvc_tpu/models/captioning.py``:
+``AVCaptioning`` (one decoder over the concatenated ``[audio | visual]``
+features) and ``AVCaptioningDual`` (per-modality decoders whose log-probs
+are summed), each with direct- and beam-mode ``predict_tokens``; the plain
+composition ``dual_greedy_tokens_fused`` and ``captions_from_tokens``.
 
-Like the JAX model it is a stateless config holder; parameters live in a
-plain dict tree with the JAX layout (``v_decoder`` / ``a_decoder`` /
-``v_reconstructor`` / ``a_reconstructor``).
+Like the JAX models they are stateless config holders; parameters live in
+a plain dict tree with the JAX layout (``decoder`` / ``reconstructor`` for
+the single model, ``v_decoder`` / ``a_decoder`` / ``v_reconstructor`` /
+``a_reconstructor`` for the dual one).
 """
 
 from __future__ import annotations
@@ -18,16 +20,17 @@ import torch
 from mvc_tpu_torch.config import (
     AUDIO_DECODER_CONFIG,
     EOS_ID,
+    SINGLE_DECODER_CONFIG,
     SOS_ID,
     VISUAL_DECODER_CONFIG,
     DecoderConfig,
 )
-from mvc_tpu_torch.models import attention as attn
 from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.ops.beam import beam_decode
 from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode
+from mvc_tpu_torch.ops.greedy import greedy_decode
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -49,13 +52,8 @@ def dual_greedy_tokens_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: De
     B = visual.shape[0]
     L = int(max_caption_len)
     device = visual.device
-    v_params = dec.cast_params_for_decode(v_params, dtype)
-    a_params = dec.cast_params_for_decode(a_params, dtype)
-    v_feats, a_feats = visual.to(dtype), audio.to(dtype)
-    v_keys = attn.precompute_keys(v_params["attention"], v_feats)
-    a_keys = attn.precompute_keys(a_params["attention"], a_feats)
-    v_P = dec.factored_P(v_params, v_feats, dtype)
-    a_P = dec.factored_P(a_params, a_feats, dtype)
+    v_params, v_feats, v_keys, v_P = dec.decode_operands(v_params, visual, dtype)
+    a_params, a_feats, a_keys, a_P = dec.decode_operands(a_params, audio, dtype)
     v_prev = torch.full((B,), SOS_ID, dtype=torch.long, device=device)
     a_prev = v_prev.clone()
     v_state = rnn.init_state(v_cfg.rnn_type, B, v_cfg.rnn_hidden_size, dtype, device)
@@ -85,6 +83,88 @@ def captions_from_tokens(vocab, tokens) -> List[str]:
     return [vocab.decode_indexes(row[1:]) for row in tokens]
 
 
+def _require_no_reconstructor(reconstructor_type: str) -> None:
+    if reconstructor_type != "none":
+        raise NotImplementedError(
+            "reconstructor init arrives with the training slice; serving reads "
+            "checkpointed reconstructor leaves as they are")
+
+
+class AVCaptioning:
+    """Single-stream concat-fusion captioner: one decoder over the
+    ``[audio | visual]`` features (F=2176 at the reference widths)."""
+
+    def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
+                 reconstructor_type: str = "none",
+                 decoder_config: Optional[DecoderConfig] = None,
+                 dtype=torch.float32, device="cuda"):
+        self.vocab_size = vocab_size
+        self.teacher_forcing_ratio = teacher_forcing_ratio
+        self.reconstructor_type = reconstructor_type
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.decoder_config = (decoder_config or SINGLE_DECODER_CONFIG).replace(
+            output_size=vocab_size)
+
+    def init(self, gen: torch.Generator):
+        """Random parameters from ``gen`` (a CPU generator), on the model's
+        device.  Reconstructors are not served and not ported yet."""
+        _require_no_reconstructor(self.reconstructor_type)
+        return {"decoder": dec.init_decoder(gen, self.decoder_config, device=self.device),
+                "reconstructor": None}
+
+    def predict_tokens(self, params, audio: torch.Tensor, visual: torch.Tensor,
+                       max_caption_len: int = 30, mode: str = "direct",
+                       beam_alpha: float = 0.0, beam_width: int = 5,
+                       feat_mask: Optional[torch.Tensor] = None,
+                       stop_at_all_eos: bool = False) -> torch.Tensor:
+        """Token ids of the decoder over ``[audio | visual]``.  Direct mode:
+        [B, max_caption_len], column 0 = 0, greedy.  Beam mode:
+        [B, max_caption_len + 2], column 0 = SOS.
+
+        CUDA tensors run the hand-written kernels (direct: ``greedy.cu`` on a
+        fixed schedule, ``stop_at_all_eos`` is ignored and the caption text is
+        the same; beam: ``beam.cu`` with one decoder); CPU tensors run
+        ``decode_greedy_tokens`` or ``beam_search``.  ``stop_at_all_eos``
+        applies to direct mode only."""
+        if mode not in ("direct", "beam"):
+            raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
+        if visual.device != self.device or audio.device != self.device:
+            raise ValueError(f"features must be on the model's device {self.device}")
+        cfg, dtype = self.decoder_config, self.dtype
+        features = torch.cat([audio, visual], dim=-1)
+        if features.device.type == "cuda":
+            decoder = dec.cast_params_for_decode(params["decoder"], dtype)
+            if mode == "beam":
+                return beam_decode([decoder], [features], feat_mask, max_caption_len,
+                                   beam_width, beam_alpha, weight_dtype=dtype,
+                                   rnn_types=(cfg.rnn_type,))
+            return greedy_decode(decoder, features, feat_mask, max_caption_len,
+                                 weight_dtype=dtype, rnn_type=cfg.rnn_type)
+        if mode == "direct":
+            return dec.decode_greedy_tokens(params["decoder"], cfg, features,
+                                            max_caption_len=max_caption_len,
+                                            feat_mask=feat_mask, dtype=dtype,
+                                            stop_at_all_eos=stop_at_all_eos)
+        dec_params, feats, keys, P = dec.decode_operands(params["decoder"], features, dtype)
+
+        def step_fn(prev, state):
+            return dec.decoder_beam_step(dec_params, cfg, prev, state, feats, keys, feat_mask,
+                                         dtype, P=P)
+
+        init_state = _beam_init_state(cfg.rnn_type, feats.shape[0], beam_width,
+                                      cfg.rnn_hidden_size, dtype, feats.device)
+        return beam_mod.beam_search(step_fn, init_state, feats.shape[0], self.vocab_size,
+                                    max_caption_len=max_caption_len, beam_alpha=beam_alpha,
+                                    beam_width=beam_width)
+
+    def predict(self, params, vocab, audio, visual, max_caption_len=30, mode="direct",
+                beam_alpha=0.0, beam_width=5, feat_mask=None) -> List[str]:
+        tokens = self.predict_tokens(params, audio, visual, max_caption_len, mode, beam_alpha,
+                                     beam_width, feat_mask)
+        return captions_from_tokens(vocab, tokens)
+
+
 class AVCaptioningDual:
     """Dual-stream late-fusion captioner — the model the reference trains.
     Fusion is an elementwise sum of the two decoders' log-probs."""
@@ -105,10 +185,7 @@ class AVCaptioningDual:
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen`` (a CPU generator), on the model's
         device.  Reconstructors are not served and not ported yet."""
-        if self.reconstructor_type != "none":
-            raise NotImplementedError(
-                "reconstructor init arrives with the training slice; serving reads "
-                "checkpointed reconstructor leaves as they are")
+        _require_no_reconstructor(self.reconstructor_type)
         return {
             "v_decoder": dec.init_decoder(gen, self.v_config, device=self.device),
             "a_decoder": dec.init_decoder(gen, self.a_config, device=self.device),
@@ -156,13 +233,8 @@ class AVCaptioningDual:
                      feat_mask):
         """The joint beam over summed log-probs (``captioning.py:803-832``)."""
         B, dtype = visual.shape[0], self.dtype
-        v_params = dec.cast_params_for_decode(params["v_decoder"], dtype)
-        a_params = dec.cast_params_for_decode(params["a_decoder"], dtype)
-        v_feats, a_feats = visual.to(dtype), audio.to(dtype)
-        v_keys = attn.precompute_keys(v_params["attention"], v_feats)
-        a_keys = attn.precompute_keys(a_params["attention"], a_feats)
-        v_P = dec.factored_P(v_params, v_feats, dtype)
-        a_P = dec.factored_P(a_params, a_feats, dtype)
+        v_params, v_feats, v_keys, v_P = dec.decode_operands(params["v_decoder"], visual, dtype)
+        a_params, a_feats, a_keys, a_P = dec.decode_operands(params["a_decoder"], audio, dtype)
 
         def step_fn(prev, state):
             v_state, a_state = state

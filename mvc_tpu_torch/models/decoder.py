@@ -1,5 +1,6 @@
 """SoftAttention-RNN caption decoder, the decode-time subset of
-``mvc_tpu/models/decoder.py:33-122``.
+``mvc_tpu/models/decoder.py``: init, the word step, the tokens-only greedy
+decode and the beam-batched word step.
 
 Params are a plain dict of tensors with the JAX package's layout:
 ``embedding.table [V, E]``, ``attention.{W [H, A], U [F, A], b [A], w [A]}``,
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from mvc_tpu_torch.config import DecoderConfig
+from mvc_tpu_torch.config import EOS_ID, SOS_ID, DecoderConfig
 from mvc_tpu_torch.models import attention as attn
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.models.initializers import embedding_params, linear_params
@@ -58,6 +59,16 @@ def factored_P(params, feats: torch.Tensor, dtype) -> Optional[torch.Tensor]:
     return feats.to(dtype) @ wi[E:].to(dtype)
 
 
+def decode_operands(params, feats: torch.Tensor, dtype):
+    """What every step of a decode reads, made once per decode: (the tree
+    cast to ``dtype``, the features in ``dtype``, the attention keys, P or
+    None)."""
+    params = cast_params_for_decode(params, dtype)
+    feats = feats.to(dtype)
+    return (params, feats, attn.precompute_keys(params["attention"], feats),
+            factored_P(params, feats, dtype))
+
+
 def decoder_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
                  feats: torch.Tensor, keys: torch.Tensor,
                  feat_mask: Optional[torch.Tensor], dtype=torch.float32,
@@ -81,6 +92,35 @@ def decoder_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
     logits = (h_new @ rnn.wmat(params["out"]["w"], dtype)
               + params["out"]["b"].to(dtype)).float()
     return torch.log_softmax(logits, dim=-1), new_state, weights
+
+
+def decode_greedy_tokens(params, cfg: DecoderConfig, feats: torch.Tensor,
+                         max_caption_len: int = 30, feat_mask: Optional[torch.Tensor] = None,
+                         dtype=torch.float32, stop_at_all_eos: bool = False) -> torch.Tensor:
+    """Tokens-only greedy decode (``mvc_tpu/models/decoder.py:326-390``): per
+    step ``decoder_step`` and the argmax of its log-probs, fed back.  The
+    CPU path of the single model's direct mode.  Returns [B, L] int32,
+    column 0 = 0.
+
+    ``stop_at_all_eos`` stops once every row has emitted EOS; later
+    positions hold 0, which ``decode_indexes`` never reads (caption text
+    identical)."""
+    B = feats.shape[0]
+    L = int(max_caption_len)
+    params, feats, keys, P = decode_operands(params, feats, dtype)
+    state = rnn.init_state(cfg.rnn_type, B, cfg.rnn_hidden_size, dtype, feats.device)
+    prev = torch.full((B,), SOS_ID, dtype=torch.long, device=feats.device)
+    tokens = torch.zeros((B, L), dtype=torch.int32, device=feats.device)
+    seen = torch.zeros((B,), dtype=torch.bool, device=feats.device)
+    for t in range(L - 1):
+        if stop_at_all_eos and bool(seen.all()):
+            break
+        log_probs, state, _ = decoder_step(params, cfg, prev, state, feats, keys, feat_mask,
+                                           dtype, P=P)
+        prev = torch.argmax(log_probs, dim=-1)
+        tokens[:, t + 1] = prev.to(torch.int32)
+        seen |= prev == EOS_ID
+    return tokens
 
 
 def decoder_beam_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mvc_tpu_torch"
-KERNELS = ("dual_greedy", "beam")  # every csrc/<name>.cu
+KERNELS = ("dual_greedy", "beam", "greedy")  # every csrc/<name>.cu
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

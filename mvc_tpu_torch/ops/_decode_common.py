@@ -1,6 +1,9 @@
 """What the whole-decode kernels share: the operands' preparation, input
-checks, the ``ctypes`` view of one decoder's operands and the plain version
-of one step of every decoder's attention and cell.
+checks, the ``ctypes`` view of one decoder's operands, the plain version
+of one step of every decoder's attention and cell, and, for the two
+greedy kernels (``greedy.cu``, ``dual_greedy.cu``: one step loop over 1 or
+2 decoders in ``csrc/greedy_common.cuh``), their plain version and
+argument block.
 
 Outside the kernels, with ``torch.matmul`` as the JAX wrappers leave it to
 XLA: the attention keys ``feats @ U`` and, for a factored decoder, the slab
@@ -165,6 +168,70 @@ def launch(name: str, lib, args, weight_dtype, device) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def check_greedy(decoder_params, feats_list, feat_mask, max_caption_len, weight_dtype,
+                 rnn_types, n_decoders: int):
+    """The greedy decodes' checks; returns (B, T, V)."""
+    if int(max_caption_len) < 2:
+        raise ValueError("max_caption_len must be >= 2")
+    return _check(decoder_params, feats_list, feat_mask, weight_dtype, rnn_types, (n_decoders,))
+
+
+def greedy_reference(decoder_params, feats_list, feat_mask, max_caption_len, weight_dtype,
+                     rnn_types, sos_id, n_decoders: int) -> torch.Tensor:
+    """Plain version of the free-running greedy kernels (``csrc/greedy.cu``,
+    ``csrc/dual_greedy.cu``): the same arithmetic, rounding points and
+    tie-break, step by step with whole-batch tensor ops.  Each decoder
+    embeds its OWN previous argmax; the token is the argmax of the
+    decoders' summed logits (one decoder: its own argmax), lowest index on
+    ties.  Returns int32 [B, max_caption_len], column 0 = 0."""
+    B, T, V = check_greedy(decoder_params, feats_list, feat_mask, max_caption_len,
+                           weight_dtype, rnn_types, n_decoders)
+    device = feats_list[0].device
+    wd = weight_dtype
+    prep = _prepare(decoder_params, feats_list, wd, rnn_types)
+    mask = _mask_f32(feat_mask, B, T, device) > 0
+    hs = [torch.zeros((B, p["H"]), dtype=torch.float32, device=device) for p in prep]
+    cs = [torch.zeros_like(h) for h in hs]
+    prevs = [torch.full((B,), sos_id, dtype=torch.long, device=device) for _ in prep]
+    tokens = torch.zeros((B, int(max_caption_len)), dtype=torch.int32, device=device)
+    for step in range(int(max_caption_len) - 1):
+        hs, cs = step_cells(prep, mask, hs, cs, prevs, wd)
+        fused = None
+        for d, p in enumerate(prep):
+            logits = hs[d].to(wd).float() @ p["wout"].float() + p["b_out"]
+            fused = logits if fused is None else fused + logits
+            prevs[d] = torch.argmax(logits, dim=1)      # first maximum = lowest index
+        tokens[:, step + 1] = torch.argmax(fused, dim=1).to(torch.int32)
+    return tokens
+
+
+def greedy_kernel_call(args_type, decoder_params, feats_list, feat_mask, max_caption_len,
+                       weight_dtype, rnn_types, sos_id, n_decoders: int):
+    """Checks and the work outside a greedy kernel for CUDA tensors.
+    Returns (args, tokens, keepalive): launching ``args`` fills ``tokens``;
+    ``keepalive`` holds the operand tensors ``args`` points into."""
+    device = _check_devices(decoder_params, feats_list, feat_mask)
+    B, T, V = check_greedy(decoder_params, feats_list, feat_mask, max_caption_len,
+                           weight_dtype, rnn_types, n_decoders)
+    prep = _prepare(decoder_params, feats_list, weight_dtype, rnn_types)
+    mask = _mask_f32(feat_mask, B, T, device)
+    tokens = torch.empty((B, int(max_caption_len)), dtype=torch.int32, device=device)
+    args = args_type()
+    for d, p in enumerate(prep):
+        fill_decoder_args(args.dec[d], p)
+    args.mask, args.tokens = mask.data_ptr(), tokens.data_ptr()
+    args.B, args.T, args.max_len, args.V, args.sos_id = B, T, int(max_caption_len), V, sos_id
+    return args, tokens, (prep, mask)
+
+
+def greedy_args_type(n_decoders: int):
+    """``struct GreedyArgsT<n_decoders>`` of ``csrc/greedy_common.cuh``."""
+    return type(f"GreedyArgs{n_decoders}", (ctypes.Structure,), {"_fields_": [
+        ("dec", DecoderArgs * n_decoders), ("mask", ctypes.c_void_p),
+        ("tokens", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("B", "T", "max_len", "V", "sos_id")]})
 
 
 def step_cells(prep, mask, hs, cs, prevs, weight_dtype, rows_per_clip: int = 1):

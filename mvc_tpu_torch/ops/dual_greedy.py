@@ -17,7 +17,6 @@ takes ``dual_greedy_decode_reference`` only for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -25,11 +24,7 @@ import torch
 from mvc_tpu_torch.config import SOS_ID
 from mvc_tpu_torch.ops import _decode_common as _dc
 
-
-def _check(decoder_params, feats_list, feat_mask, max_caption_len, weight_dtype, rnn_types):
-    if int(max_caption_len) < 2:
-        raise ValueError("max_caption_len must be >= 2")
-    return _dc._check(decoder_params, feats_list, feat_mask, weight_dtype, rnn_types, (2,))
+_DualGreedyArgs = _dc.greedy_args_type(2)
 
 
 def dual_greedy_decode_reference(
@@ -43,38 +38,15 @@ def dual_greedy_decode_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same arithmetic, rounding
     points and tie-break, step by step with whole-batch tensor ops."""
-    B, T, V = _check(decoder_params, feats_list, feat_mask, max_caption_len,
-                     weight_dtype, rnn_types)
-    device = feats_list[0].device
-    wd = weight_dtype
-    prep = _dc._prepare(decoder_params, feats_list, wd, rnn_types)
-    mask = _dc._mask_f32(feat_mask, B, T, device) > 0
-    hs = [torch.zeros((B, p["H"]), dtype=torch.float32, device=device) for p in prep]
-    cs = [torch.zeros_like(h) for h in hs]
-    prevs = [torch.full((B,), sos_id, dtype=torch.long, device=device) for _ in prep]
-    tokens = torch.zeros((B, int(max_caption_len)), dtype=torch.int32, device=device)
-    for step in range(int(max_caption_len) - 1):
-        hs, cs = _dc.step_cells(prep, mask, hs, cs, prevs, wd)
-        fused = torch.zeros((B, V), dtype=torch.float32, device=device)
-        for d, p in enumerate(prep):
-            logits = hs[d].to(wd).float() @ p["wout"].float() + p["b_out"]
-            fused = fused + logits
-            prevs[d] = torch.argmax(logits, dim=1)      # first maximum = lowest index
-        tokens[:, step + 1] = torch.argmax(fused, dim=1).to(torch.int32)
-    return tokens
-
-
-class _DualGreedyArgs(ctypes.Structure):
-    _fields_ = [("dec", _dc.DecoderArgs * 2), ("mask", ctypes.c_void_p),
-                ("tokens", ctypes.c_void_p)] + [
-        (n, ctypes.c_int) for n in ("B", "T", "max_len", "V", "sos_id")]
+    return _dc.greedy_reference(decoder_params, feats_list, feat_mask, max_caption_len,
+                                weight_dtype, rnn_types, sos_id, n_decoders=2)
 
 
 def _library():
     return _dc.library("dual_greedy", _DualGreedyArgs)
 
 
-def _launch(args: _DualGreedyArgs, weight_dtype, device) -> None:
+def _launch(args, weight_dtype, device) -> None:
     """One kernel launch on the current stream of ``device``; raises if the
     launch is refused.  The tensors behind ``args`` must outlive the call's
     enqueue (PyTorch's allocator orders their reuse on the same stream)."""
@@ -88,18 +60,9 @@ def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_
     """Checks and the work outside the kernel for CUDA tensors.  Returns
     (args, tokens, keepalive): ``_launch(args, ...)`` fills ``tokens``;
     ``keepalive`` holds the operand tensors ``args`` points into."""
-    device = _dc._check_devices(decoder_params, feats_list, feat_mask)
-    B, T, V = _check(decoder_params, feats_list, feat_mask, max_caption_len,
-                     weight_dtype, rnn_types)
-    prep = _dc._prepare(decoder_params, feats_list, weight_dtype, rnn_types)
-    mask = _dc._mask_f32(feat_mask, B, T, device)
-    tokens = torch.empty((B, int(max_caption_len)), dtype=torch.int32, device=device)
-    args = _DualGreedyArgs()
-    for d, p in enumerate(prep):
-        _dc.fill_decoder_args(args.dec[d], p)
-    args.mask, args.tokens = mask.data_ptr(), tokens.data_ptr()
-    args.B, args.T, args.max_len, args.V, args.sos_id = B, T, int(max_caption_len), V, sos_id
-    return args, tokens, (prep, mask)
+    return _dc.greedy_kernel_call(_DualGreedyArgs, decoder_params, feats_list, feat_mask,
+                                  max_caption_len, weight_dtype, rnn_types, sos_id,
+                                  n_decoders=2)
 
 
 def dual_greedy_decode(

@@ -102,9 +102,13 @@ def _tree_to(tree, device):
 class CaptionService:
     """Thread-safe online captioner over the model's ``predict_tokens``.
 
-    ``device`` is where the decode runs: the card by default (RuntimeError
-    when there is none), the plain PyTorch path with ``device="cpu"``.  The
-    model must have been built for the same device."""
+    ``model`` is any captioner with the JAX models' ``predict_tokens(params,
+    audio, visual, ...)`` contract and a ``device``: ``AVCaptioningDual``
+    (two decoders) or ``AVCaptioning`` (one decoder over ``[audio |
+    visual]``; ``params`` = ``{"decoder", "reconstructor"}``).  ``device`` is
+    where the decode runs: the card by default (RuntimeError when there is
+    none), the plain PyTorch path with ``device="cpu"``.  The model must
+    have been built for the same device."""
 
     def __init__(self, model, params, vocab, config: Optional[ServiceConfig] = None,
                  device="cuda"):

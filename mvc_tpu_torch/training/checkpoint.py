@@ -2,8 +2,10 @@
 
 The format is the JAX package's: a pickle of ``{epoch, params, opt_state,
 ...}`` with numpy leaves.  ``utils/jax_weights.from_numpy_tree`` turns the
-``params`` tree into the port's tensors.  Saving belongs to the training
-slice.
+``params`` tree into the port's tensors, for either model (``AVCaptioning``:
+``{decoder, reconstructor}``; ``AVCaptioningDual``: ``{v_decoder,
+a_decoder, v_reconstructor, a_reconstructor}``).  Saving belongs to the
+training slice.
 """
 
 from __future__ import annotations

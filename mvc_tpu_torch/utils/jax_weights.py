@@ -4,7 +4,8 @@ A JAX tree (numpy leaves, as ``mvc_tpu.training.checkpoint`` pickles it, or
 ``np.asarray`` of live JAX arrays) maps leaf for leaf onto a dict tree of
 tensors with the same keys and the same layouts: ``wi`` is ``[E+F, G*H]``
 with the embedding rows first, every linear ``w`` is ``[in, out]``.  Both
-the ``init_decoder`` tree and the dual tree (``v_decoder`` / ``a_decoder`` /
+the ``init_decoder`` tree, the single model's tree (``decoder`` /
+``reconstructor``) and the dual tree (``v_decoder`` / ``a_decoder`` /
 ``v_reconstructor`` / ``a_reconstructor``) go through unchanged; the
 reconstructor leaves ride along although serving never runs them.
 """

@@ -22,12 +22,13 @@ import torch
 
 from mvc_tpu.config import DecoderConfig
 from mvc_tpu.data import Vocabulary as JaxVocabulary
+from mvc_tpu.models import AVCaptioning as JaxAVCaptioning
 from mvc_tpu.models import AVCaptioningDual as JaxDual
 from mvc_tpu.serving import CaptionService as JaxService
 from mvc_tpu.serving import ServiceConfig as JaxServiceConfig
 from mvc_tpu_torch.config import DecoderConfig as TorchDecoderConfig
 from mvc_tpu_torch.data import Vocabulary
-from mvc_tpu_torch.models.captioning import AVCaptioningDual
+from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual
 from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
 from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
 
@@ -150,6 +151,8 @@ def test_card_is_the_default(tiny, monkeypatch):
     with pytest.raises(RuntimeError):
         AVCaptioningDual(vocab_size=len(vocab))
     with pytest.raises(RuntimeError):
+        AVCaptioning(vocab_size=len(vocab))
+    with pytest.raises(RuntimeError):
         CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**SERVICE))
     from mvc_tpu_torch.cli import serve_captions
 
@@ -187,6 +190,30 @@ def test_beam_service_matches_jax_service(tiny):
     assert stats["mode"] == "beam" and stats["requests"] == 6 and stats["batches"] < 6
 
 
+@pytest.mark.parametrize("mode", ["direct", "beam"])
+def test_single_model_service_matches_jax_service(tiny, mode):
+    """``CaptionService(AVCaptioning)``: one decoder over [audio | visual]."""
+    _, jvocab, _, _, vocab = tiny
+    single = dict(TINY_V, in_feature_size=A_DIM + V_DIM)
+    jmodel = JaxAVCaptioning(vocab_size=len(jvocab), decoder_config=DecoderConfig(**single))
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(1)))
+    assert params["reconstructor"] is None
+    model = AVCaptioning(vocab_size=len(vocab), decoder_config=TorchDecoderConfig(**single),
+                         device="cpu")
+    reqs = _requests(4, 6)
+    cfg = dict(SERVICE, mode=mode, beam_width=3, beam_alpha=0.7)
+    with JaxService(jmodel, jax.tree.map(jax.numpy.asarray, params), jvocab,
+                    JaxServiceConfig(**cfg)) as svc:
+        want = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+    with CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**cfg),
+                        device="cpu") as svc:
+        got = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+        stats = svc.stats()
+    assert got == want
+    assert len(set(got)) > 1
+    assert stats["mode"] == mode and stats["requests"] == 6 and stats["batches"] < 6
+
+
 def test_cli_beam_flags_reach_the_service(tiny, tmp_path, monkeypatch):
     """``--mode beam --beam_width --beam_alpha`` build a beam service."""
     jmodel, jvocab, params, model, vocab = tiny
@@ -220,7 +247,7 @@ def test_package_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import mvc_tpu_torch\n"
-        "import mvc_tpu_torch.ops.beam, mvc_tpu_torch.models.beam\n"
+        "import mvc_tpu_torch.ops.beam, mvc_tpu_torch.models.beam, mvc_tpu_torch.ops.greedy\n"
         "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mvc_tpu')"

@@ -7,6 +7,7 @@ import torch
 
 from mvc_tpu.config import DecoderConfig
 from mvc_tpu.models import decoder as jdec
+from mvc_tpu.models.captioning import AVCaptioning as JaxAVCaptioning
 from mvc_tpu.models.captioning import AVCaptioningDual as JaxDual
 from mvc_tpu.training.checkpoint import save_checkpoint
 from mvc_tpu_torch.training.checkpoint import load_checkpoint
@@ -52,6 +53,18 @@ def test_dual_tree_round_trips_bit_for_bit(reconstructor):
     _assert_same_tree(to_numpy_tree(port), tree)
 
 
+@pytest.mark.parametrize("reconstructor", ["none", "global"])
+def test_single_tree_round_trips_bit_for_bit(reconstructor):
+    model = JaxAVCaptioning(vocab_size=19, reconstructor_type=reconstructor,
+                            decoder_config=DecoderConfig(in_feature_size=20, rnn_hidden_size=16,
+                                                         embedding_size=8, attn_size=8))
+    tree = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(4)))
+    port = from_numpy_tree(tree)
+    assert set(port) == {"decoder", "reconstructor"}
+    assert (port["reconstructor"] is None) == (reconstructor == "none")
+    _assert_same_tree(to_numpy_tree(port), tree)
+
+
 def test_bridge_casts_and_places():
     tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "i": np.arange(3)}
     port = from_numpy_tree(tree, device="cpu", dtype=torch.bfloat16)
@@ -77,7 +90,7 @@ def test_own_copies_match_jax_package(tmp_path):
     for name in ("PAD_ID", "SOS_ID", "EOS_ID", "UNK_ID", "AUDIO_FEATURE_DIM",
                  "VISUAL_FEATURE_DIM"):
         assert getattr(tcfg, name) == getattr(jcfg, name), name
-    for name in ("VISUAL_DECODER_CONFIG", "AUDIO_DECODER_CONFIG"):
+    for name in ("VISUAL_DECODER_CONFIG", "AUDIO_DECODER_CONFIG", "SINGLE_DECODER_CONFIG"):
         assert (dataclasses.asdict(getattr(tcfg, name))
                 == dataclasses.asdict(getattr(jcfg, name))), name
     ladder = (8, 16, 32, 48, 64)
@@ -128,3 +141,32 @@ def test_checkpoint_from_jax_save_loads(tmp_path):
     assert load_checkpoint(str(tmp_path / "absent.ckpt")) is None
     (tmp_path / "bad.ckpt").write_bytes(b"not a pickle")
     assert load_checkpoint(str(tmp_path / "bad.ckpt")) is None
+
+
+def test_single_model_checkpoint_from_jax_save_loads(tmp_path):
+    """The single model's tree {decoder, reconstructor: None} loads bit for
+    bit, and the loaded weights decode as the JAX tree does."""
+    import optax
+
+    from mvc_tpu_torch.config import DecoderConfig as TorchDecoderConfig
+    from mvc_tpu_torch.models import AVCaptioning
+
+    small = dict(in_feature_size=20, rnn_hidden_size=16, embedding_size=8, attn_size=8)
+    model = JaxAVCaptioning(vocab_size=23, decoder_config=DecoderConfig(**small))
+    params = model.init(jax.random.PRNGKey(5))
+    path = str(tmp_path / "single.ckpt")
+    save_checkpoint(path, {"epoch": 1, "params": params,
+                           "opt_state": optax.adam(1e-3).init(params)})
+    ckpt = load_checkpoint(path)
+    assert ckpt["epoch"] == 1 and ckpt["params"]["reconstructor"] is None
+    port = from_numpy_tree(ckpt["params"])
+    _assert_same_tree(to_numpy_tree(port), jax.tree.map(np.asarray, params))
+    rng = np.random.default_rng(0)
+    audio = rng.normal(size=(2, 3, 4)).astype(np.float32)
+    visual = rng.normal(size=(2, 3, 16)).astype(np.float32)
+    want = np.asarray(model.predict_tokens(params, jax.numpy.asarray(audio),
+                                           jax.numpy.asarray(visual), max_caption_len=5))
+    tmodel = AVCaptioning(vocab_size=23, decoder_config=TorchDecoderConfig(**small), device="cpu")
+    got = tmodel.predict_tokens(port, torch.from_numpy(audio), torch.from_numpy(visual),
+                                max_caption_len=5).numpy()
+    np.testing.assert_array_equal(got, want)
