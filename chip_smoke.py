@@ -13,13 +13,16 @@ its own failure:
    serving shape (B=64, T=16, max_len=30, V=4000, full widths; beam W=5):
    the dual model's two decoders (``dual_greedy.cu``, ``beam.cu``) and the
    single model's one decoder over [audio | visual], F=2176 (``greedy.cu``,
-   ``beam.cu`` with one decoder)
+   ``beam.cu`` with one decoder); ``beam.cu`` at both of its row tiles (15
+   and 8 rows), with more widths (W=3, W=8), clips that finish at different
+   steps within one cluster, T=64, and a T only the 8-row tile holds
 4. serving: ``AVCaptioningDual``, then ``AVCaptioning``, at full width with
    seeded random weights, ``CaptionService(max_batch=64)`` behind
    ``make_http_server``, a few dozen requests through ``POST /caption`` and
    ``/caption_batch``, once in direct mode and once in beam mode; each
    kernel's launch count is set to 0 just before its run and read just after
-5. times with CUDA events (warm-up excluded): kernel, plain version, bound
+5. times with CUDA events (warm-up excluded): kernel, plain version, bound;
+   ``beam.cu`` per tile: shared memory, largest T, clusters, waves, times
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -138,9 +141,9 @@ def bounds(flops_pre, flops_kernel, nbytes, peak_flops=PEAK_F32_FLOPS):
 
 
 def largest_t(lib_fn, args, limit):
-    """The largest T whose shared-memory need stays within the limit."""
-    t0 = args.T
-    t_max = t0
+    """The largest T whose shared-memory need stays within the limit, on
+    the branch (factored or direct) each decoder of ``args`` takes."""
+    t0, t_max = args.T, 0
     while True:
         args.T = t_max + 1
         if lib_fn(ctypes.byref(args)) > limit:
@@ -184,29 +187,53 @@ def check_single_greedy(gr, decoder, feats, mask, cell, dtype, exact, label=""):
         f"{label}{cell} F={feats.shape[2]} {dtype}", mask, exact)
 
 
-def check_beam(bm, decoders, feats, mask, cells, dtype, alpha, exact, device, label=""):
-    """Kernel tokens and per-clip step counts against the plain version."""
+def check_beam(bm, decoders, feats, mask, cells, dtype, alpha, exact, device, label="", w=W,
+               tiles=(15, 8)):
+    """Kernel tokens and per-clip step counts at each row tile (0: the
+    kernel's own choice) against the plain version; ``exact`` requires
+    every token and step count equal, otherwise >= 99.8 % equal tokens."""
     from mvc_tpu_torch.config import SOS_ID
 
-    args, tok_k, steps_k, keep = bm.prepare_kernel_call(decoders, feats, mask, L, W, alpha,
-                                                        dtype, cells)
-    bm._launch(args, dtype, device)
-    torch.cuda.synchronize()
-    del keep
-    tok_p, steps_p = bm.beam_decode_reference(decoders, feats, mask, L, W, alpha, dtype, cells,
+    tok_p, steps_p = bm.beam_decode_reference(decoders, feats, mask, L, w, alpha, dtype, cells,
                                               return_steps=True)
-    same = (tok_k == tok_p).float().mean().item()
-    err = (tok_k.long() - tok_p.long()).abs().max().item()
-    log(f"beam kernel vs plain {label}{cells} {dtype} W={W} alpha={alpha} B={mask.shape[0]} "
-        f"T={mask.shape[1]}: equal tokens {same:.6f}, unique tokens "
-        f"{len(torch.unique(tok_p[:, 1:]))}, steps kernel {steps_k.tolist()[:8]}... "
-        f"plain {steps_p.tolist()[:8]}...")
-    if (tok_k.shape != (mask.shape[0], L + 2) or not bool((tok_k[:, 0] == SOS_ID).all())
-            or ((tok_k < 0) | (tok_k >= V)).any()):
-        raise SystemExit("beam kernel tokens break the output contract")
-    if exact and (same != 1.0 or not torch.equal(steps_k, steps_p)):
-        raise SystemExit(f"beam kernel disagrees with its plain version ({label}{cells}, {dtype})")
-    return float(err), tok_p, steps_p
+    err = 0.0
+    for rows in tiles:
+        args, tok_k, steps_k, keep = bm.prepare_kernel_call(decoders, feats, mask, L, w, alpha,
+                                                            dtype, cells)
+        bm._launch(args, dtype, device, rows)
+        torch.cuda.synchronize()
+        del keep
+        same = (tok_k == tok_p).float().mean().item()
+        err = max(err, float((tok_k.long() - tok_p.long()).abs().max().item()))
+        log(f"beam kernel R={rows or 'auto'} vs plain {label}{cells} {dtype} W={w} alpha={alpha} "
+            f"B={mask.shape[0]} T={mask.shape[1]}: equal tokens {same:.6f}, unique tokens "
+            f"{len(torch.unique(tok_p[:, 1:]))}, steps equal {torch.equal(steps_k, steps_p)}, "
+            f"kernel {steps_k.tolist()[:9]}... plain {steps_p.tolist()[:9]}...")
+        if (tok_k.shape != (mask.shape[0], L + 2) or not bool((tok_k[:, 0] == SOS_ID).all())
+                or ((tok_k < 0) | (tok_k >= V)).any()):
+            raise SystemExit("beam kernel tokens break the output contract")
+        if exact and (same != 1.0 or not torch.equal(steps_k, steps_p)):
+            raise SystemExit(f"beam kernel R={rows} disagrees with its plain version "
+                             f"({label}{cells}, {dtype})")
+        if not exact and same < 0.998:
+            raise SystemExit(f"beam kernel R={rows} agrees on {same:.6f} < 99.8 % of tokens "
+                             f"({label}{cells}, {dtype})")
+    return err, tok_p, steps_p
+
+
+def staggered_eos(bm, params, feats, mask, cells):
+    """EOS-lifted decoders under which clips of one 15-row cluster (three
+    consecutive clips at W=5) stop at different steps, found by lifting EOS
+    less and less on the plain version; returns (decoders, steps)."""
+    for eos_bias in (1.0, 0.5, 0.3, 0.2, 0.1, 0.05):
+        dec = spread_bias(params, seed=5, eos_bias=eos_bias)
+        _, steps = bm.beam_decode_reference(dec, feats, mask, L, W, 0.7, torch.float32, cells,
+                                            return_steps=True)
+        groups = steps[: len(steps) // 3 * 3].view(-1, 3)
+        if bool((groups.amax(1) != groups.amin(1)).any()) and int(steps.min()) < L + 1:
+            log(f"staggered EOS case: eos_bias {eos_bias}")
+            return dec, steps
+    raise SystemExit("no EOS lift makes the clips of one cluster stop at different steps")
 
 
 def serve(model, params, vocab, device, mode, label=""):
@@ -310,6 +337,49 @@ def time_calls(call_k, call_p, call_launch):
     return tuple(float(np.mean(x)) for x in (ms_k, ms_p, ms_l))
 
 
+def beam_tiles(bm, dc, card, decoders, feats, mask, cells, s_dec, sf, device):
+    """``beam.cu`` at each row tile, for the dual model and the single
+    model's one decoder at W=5 and the dual model at W=8 (f32, T=16):
+    shared memory per block, largest T, clusters in the grid and resident
+    at once, waves, and the kernel's time alone at B=64 and B=16, tiles in
+    turns (15, 8, 8, 15)."""
+    f32 = torch.float32
+    lib = bm._library()
+    for label, dec, fts, cl, w in (("dual", decoders, feats, cells, W),
+                                   ("one decoder", [s_dec], [sf], ("LSTM",), W),
+                                   ("dual", decoders, feats, cells, 8)):
+        calls, default, keep = {}, {}, []
+        for b in (B, 16):
+            args, _tok, _steps, k = bm.prepare_kernel_call(
+                dec, [f[:b].contiguous() for f in fts], mask[:b].contiguous(), L, w, 0.0, f32, cl)
+            keep.append(k)
+            default[b] = lib.beam_tile_rows(ctypes.byref(args))
+            for rows in bm.TILES:
+                calls[rows, b] = (args, lambda a=args, r=rows: bm._launch(a, f32, device, r))
+        for _args, fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        ms = {key: [] for key in calls}
+        for rows in bm.TILES + bm.TILES[::-1]:
+            for b in (B, 16):
+                ms[rows, b].append(cuda_ms(calls[rows, b][1], 5))
+        for rows in bm.TILES:
+            args = calls[rows, B][0]
+            grid = -(-B // (rows // w))
+            resident = lib.beam_max_active_clusters(ctypes.byref(args), 0, rows)
+            t_max = largest_t(lambda a, r=rows: lib.beam_smem_bytes(a, r), args,
+                              dc.MAX_SMEM_BYTES)
+            log(f"[{card}] beam {label} W={w} R={rows}: shared memory per block at T={T} "
+                f"{lib.beam_smem_bytes(ctypes.byref(args), rows)} bytes, largest T {t_max}, "
+                f"clusters in the grid at B={B} {grid}, resident {resident}, waves "
+                f"{-(-grid // max(resident, 1))}; kernel alone B={B} "
+                f"{float(np.mean(ms[rows, B])):.4f} ms, B=16 {float(np.mean(ms[rows, 16])):.4f} ms")
+        fast = min(bm.TILES, key=lambda r: np.mean(ms[r, B]))
+        log(f"beam {label} W={w}: default tile R={default[B]} at B={B} (R={default[16]} at "
+            f"B=16); faster at B={B}: R={fast}")
+        del keep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -338,7 +408,7 @@ def main() -> int:
     log(f"built {list(out)} in {time.perf_counter() - t0:.1f} s")
     for src, text in out.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("registers", "spill", "smem", "entry function")):
                 log(f"  {src}: {line.strip()}")
 
     # -- 3. kernels vs plain at full width
@@ -386,6 +456,8 @@ def main() -> int:
     s_err = max(s_err, check_single_greedy(gr, s_dec, ssf, smask, "LSTM", f32, True, "ragged "))
     check_single_greedy(gr, s_bf16, sf, mask, "LSTM", torch.bfloat16, False, "AVCaptioning ")
 
+    # the serving shape: B=64 at W=5 is 22 clusters of three clips at R=15,
+    # the last holding one clip and two of padding
     b_err, _, steps_main = check_beam(bm, decoders, [vf, af], mask, cells, torch.float32, 0.0,
                                       True, device)
     for alpha, dec_, cells_, feats_, mask_, label in (
@@ -409,6 +481,52 @@ def main() -> int:
     check_beam(bm, bf16, [vf, af], mask, cells, torch.bfloat16, 0.0, False, device, "bf16 ")
     err, _, s_steps_main = check_beam(bm, [s_dec], [sf], mask, ("LSTM",), f32, 0.0, True,
                                       device, "AVCaptioning F=2176 ")
+    b_err = max(b_err, err)
+    # other packings of the tiles: W=3 (5 clips in 15 rows, 2 in 8), W=8 (1 clip in either)
+    for w in (3, 8):
+        err, _, _ = check_beam(bm, decoders, [vf, af], mask, cells, f32, 0.7, True, device,
+                               f"W={w} ", w=w)
+        b_err = max(b_err, err)
+    # clips of one cluster stop at different steps; each keeps its own count
+    stag, _ = staggered_eos(bm, [params["v_decoder"], params["a_decoder"]], [vf, af], mask, cells)
+    err, _, steps_stag = check_beam(bm, stag, [vf, af], mask, cells, f32, 0.7, True, device,
+                                    "staggered EOS ")
+    b_err = max(b_err, err)
+    groups = steps_stag[:63].view(21, 3)
+    mixed_groups = int((groups.amax(1) != groups.amin(1)).sum())
+    log(f"staggered EOS: 15-row clusters whose clips stop at different steps: {mixed_groups} of "
+        f"21; first ones {groups[groups.amax(1) != groups.amin(1)][:4].tolist()}")
+    # the longest serving frame bucket, on the 15-row tile
+    lvf, laf, lmask = decode_inputs(6, device, t=64)
+    la, _tok, _st, lkeep = bm.prepare_kernel_call(decoders, [lvf, laf], lmask, L, W, 0.0, f32,
+                                                  cells)
+    if bm._library().beam_tile_rows(ctypes.byref(la)) != 15:
+        raise SystemExit("T=64 no longer takes the 15-row tile")
+    del lkeep
+    err, _, _ = check_beam(bm, decoders, [lvf, laf], lmask, cells, f32, 0.0, True, device,
+                           "T=64 ", tiles=(0,))
+    b_err = max(b_err, err)
+    # a clip longer than the 15-row tile holds: the kernel takes the 8-row one
+    blib = bm._library()
+    sb = decode_inputs(7, device, b=4, t=150)
+    xa, _tok, _st, xkeep = bm.prepare_kernel_call(decoders, list(sb[:2]), sb[2], L, W, 0.0, f32,
+                                                  cells)
+    t_big = largest_t(lambda a: blib.beam_smem_bytes(a, 15), xa, dc.MAX_SMEM_BYTES) + 1
+    xa.T = t_big
+    if blib.beam_tile_rows(ctypes.byref(xa)) != 8:
+        raise SystemExit(f"T={t_big} should take the 8-row tile")
+    del xkeep
+    bvf, baf, bmask = decode_inputs(7, device, b=4, t=t_big)
+    ba, _tok, _st, bkeep = bm.prepare_kernel_call(decoders, [bvf, baf], bmask, L, W, 0.0, f32,
+                                                  cells)
+    try:
+        bm._launch(ba, f32, device, 15)
+        raise SystemExit(f"the 15-row tile launched at T={t_big}, above its limit")
+    except ValueError as e:
+        log(f"T={t_big} on the 15-row tile raises ValueError: {e}")
+    del bkeep
+    err, _, _ = check_beam(bm, decoders, [bvf, baf], bmask, cells, f32, 0.0, True, device,
+                           f"T={t_big} (8-row tile) ", tiles=(0,))
     b_err = max(b_err, err)
 
     # -- 4. serving through the kernels; each count covers exactly its run
@@ -499,25 +617,7 @@ def main() -> int:
     log(f"[{card}] beam bound (whole call, operations {(b_pre + b_kern) / 1e9:.2f} GFLOP at "
         f"67 TFLOP/s f32; bytes {b_bytes / 1e6:.1f} MB at 3.35 TB/s): {b_bound:.4f} ms")
     log(f"[{card}] beam bound (kernel alone, {b_kern / 1e9:.2f} GFLOP): {b_bound_k:.4f} ms")
-    blib = bm._library()
-    log(f"beam shared memory per block at T={T}: {blib.beam_smem_bytes(ctypes.byref(b_args))} "
-        f"bytes; largest T at these widths: "
-        f"{largest_t(blib.beam_smem_bytes, b_args, dc.MAX_SMEM_BYTES)}; largest W "
-        f"{blib.beam_max_width()}")
-    blib.beam_max_active_clusters.argtypes = [ctypes.POINTER(bm._BeamArgs), ctypes.c_int]
-    clusters = blib.beam_max_active_clusters(ctypes.byref(b_args), 0)
-    log(f"beam clusters resident at once: {clusters}, grid clusters at B={B}: "
-        f"{-(-B // (blib.beam_max_width() // W))}")
     del b_keep
-    # the same search over the first 16 clips: a quarter of the clusters
-    b16 = [vf[:16].contiguous(), af[:16].contiguous()]
-    a16, _tok, _steps, keep16 = bm.prepare_kernel_call(decoders, b16, mask[:16].contiguous(), L,
-                                                       W, 0.0, f32, cells)
-    bm._launch(a16, f32, device)
-    ms16 = cuda_ms(lambda: bm._launch(a16, f32, device), 5)
-    log(f"[{card}] beam kernel launch alone at B=16 (steps max {int(_steps.max())}): "
-        f"{ms16:.4f} ms")
-    del keep16
 
     # the single model's greedy kernel, f32 (the record's) and bf16 (bench.py's greedy dtype)
     s_times = {}
@@ -565,6 +665,9 @@ def main() -> int:
         f"kernel launch alone {sb_launch:.4f} ms, plain {sb_plain:.4f} ms, bound "
         f"{sb_bound:.4f} ms whole call / {sb_bound_k:.4f} ms kernel ({kern / 1e9:.2f} GFLOP)")
     del sb_keep
+    # the beam kernel at each row tile, last: its long runs come after every
+    # other kernel's timing
+    beam_tiles(bm, dc, card, decoders, [vf, af], mask, cells, s_dec, sf, device)
 
     record = {"kernels": [
         {"name": "dual_greedy_decode", "route": "cuda",

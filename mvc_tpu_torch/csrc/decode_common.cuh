@@ -1,11 +1,12 @@
 // Building blocks of the whole-decode kernels (dual_greedy.cu, beam.cu).
 //
-// A thread-block cluster of CL blocks owns a tile of ROWS decoder rows and
-// runs every step of the decode for them.  Each block of the cluster owns
-// 1/CL of every weight's output columns (attention query, gate units,
-// vocab slice) and streams only those, so a step's weights are read once
-// per cluster, spread over CL SMs, and each load feeds ROWS rows held in
-// registers.  The hidden state and the attention query cross the cluster
+// A thread-block cluster of CL blocks owns a tile of R decoder rows (a
+// template parameter: ROWS = 8 for the greedy decodes, 8 or 15 for the
+// beam search) and runs every step of the decode for them.  Each block of
+// the cluster owns 1/CL of every weight's output columns (attention query,
+// gate units, vocab slice) and streams only those, so a step's weights are
+// read once per cluster, spread over CL SMs, and each load feeds R rows
+// held in registers.  The hidden state and the attention query cross the cluster
 // through distributed shared memory; the attention weights and the step
 // input are recomputed by every block of the cluster (a few thousand
 // operations per row).  Each lane loads four neighbouring columns of the
@@ -49,7 +50,9 @@ namespace {
 constexpr int NT = 512;          // threads per block
 constexpr int NWARPS = NT / 32;
 constexpr int CL = 8;            // blocks per cluster
-constexpr int ROWS = 8;          // rows per cluster tile
+constexpr int ROWS = 8;          // rows per cluster tile (the default R)
+constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a Hopper block may opt into
+                                        // (ops/_decode_common.py: MAX_SMEM_BYTES)
 constexpr float NEG = -1e30f;    // masked energy, as the TPU kernels
 
 template <typename WT>
@@ -149,11 +152,13 @@ __device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* __rest
 
 // acc[r][c] += sum over k in [k0, k1) of rnd(in[r][k]) * W[k][cols[c]], in k
 // order.  With a row stride and k0 that are multiples of 4 the inputs come
-// from shared memory four k at a time.
-template <typename WT>
+// from shared memory four k at a time.  At R = 15 the accumulators leave
+// ptxas a few spilled registers; taking two k at a time spills fewer but
+// runs slower (PERF.md).
+template <typename WT, int R>
 __device__ __forceinline__ void dot4(const WT* __restrict__ W, int ldw, const int (&cols)[4],
                                      bool vec, int k0, int k1, const float* in, int in_stride,
-                                     float (&acc)[ROWS][4]) {
+                                     float (&acc)[R][4]) {
   int k = k0;
   if ((in_stride & 3) == 0 && (k0 & 3) == 0) {
     for (; k + 4 <= k1; k += 4) {
@@ -161,7 +166,7 @@ __device__ __forceinline__ void dot4(const WT* __restrict__ W, int ldw, const in
 #pragma unroll
       for (int i = 0; i < 4; ++i) load4<WT>(W, (size_t)(k + i) * ldw, cols, vec, w[i]);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
+      for (int r = 0; r < R; ++r) {
         const float4 x4 = *reinterpret_cast<const float4*>(in + r * in_stride + k);
         const float x[4] = {rnd<WT>(x4.x), rnd<WT>(x4.y), rnd<WT>(x4.z), rnd<WT>(x4.w)};
 #pragma unroll
@@ -175,7 +180,7 @@ __device__ __forceinline__ void dot4(const WT* __restrict__ W, int ldw, const in
     float w[4];
     load4<WT>(W, (size_t)k * ldw, cols, vec, w);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
+    for (int r = 0; r < R; ++r) {
       const float x = rnd<WT>(in[r * in_stride + k]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(x, w[c], acc[r][c]);
@@ -183,8 +188,9 @@ __device__ __forceinline__ void dot4(const WT* __restrict__ W, int ldw, const in
   }
 }
 
-// out[r][j] = sum_k rnd(in[r][k]) * W[k][col(j)] for this block's ncols
-// columns, col(j) = (j / seg) * seg_stride + base + j % seg.
+// out[r][j] = sum_k rnd(in[r][k]) * W[k][col(j)] for the R rows and this
+// block's ncols columns, col(j) = (j / seg) * seg_stride + base + j % seg.
+// part holds R * max(NT, ncols) floats.
 //
 // A warp owns 32 consecutive columns as 8 groups of 4 (one 16-byte load
 // per lane and k when the group is aligned) and splits K four ways across
@@ -192,7 +198,7 @@ __device__ __forceinline__ void dot4(const WT* __restrict__ W, int ldw, const in
 // than warps, K is split across warps too and the partial sums are added
 // through shared memory.  Every sum runs in a fixed order.  Ends with the
 // block synchronized.
-template <typename WT>
+template <typename WT, int R = ROWS>
 __device__ void matvec_cols(const WT* __restrict__ W, int ldw, int K, const float* in,
                             int in_stride, int ncols, int seg, int seg_stride, int base,
                             float* part, float* out) {
@@ -212,14 +218,14 @@ __device__ void matvec_cols(const WT* __restrict__ W, int ldw, int K, const floa
     const int kw0 = min(K, kwi * kcw), kw1 = min(K, kw0 + kcw);
     const int kcl = (cdiv(kw1 - kw0, 4) + 3) & ~3;
     const int k0 = min(kw1, kw0 + kq * kcl), k1 = min(kw1, k0 + kcl);
-    float acc[ROWS][4];
+    float acc[R][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    if (cols[0] >= 0) dot4<WT>(W, ldw, cols, vec, k0, k1, in, in_stride, acc);
+    if (cols[0] >= 0) dot4<WT, R>(W, ldw, cols, vec, k0, k1, in, in_stride, acc);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float a = acc[r][c];
@@ -229,17 +235,17 @@ __device__ void matvec_cols(const WT* __restrict__ W, int ldw, int K, const floa
       }
     if (kq == 0) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (j + c < ncols) part[(kwi * ROWS + r) * ncols + j + c] = acc[r][c];
+          if (j + c < ncols) part[(kwi * R + r) * ncols + j + c] = acc[r][c];
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < ROWS * ncols; i += NT) {
+  for (int i = threadIdx.x; i < R * ncols; i += NT) {
     const int r = i / ncols, jj = i - r * ncols;
     float s = 0.f;
-    for (int k = 0; k < kw; ++k) s += part[(k * ROWS + r) * ncols + jj];
+    for (int k = 0; k < kw; ++k) s += part[(k * R + r) * ncols + jj];
     out[i] = s;
   }
   __syncthreads();
@@ -254,7 +260,7 @@ __device__ __forceinline__ int row_clip(int clip0, int r, int rpc, int B) {
 // input, for every row of the tile; every block of the cluster computes
 // them (bit-identically) from the gathered query.  Lay is the kernel's
 // shared-memory layout (offsets in floats: q, att, x per decoder).
-template <typename WT, typename Lay>
+template <typename WT, int R = ROWS, typename Lay>
 __device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
                           const float* mask, int clip0, int rpc, int B, int T) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -264,7 +270,7 @@ __device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
   float* att = sm + Lo.att[d];
   float* x = sm + Lo.x[d];
 
-  for (int p = warp; p < ROWS * T; p += NWARPS) {
+  for (int p = warp; p < R * T; p += NWARPS) {
     const int r = p / T, t = p - r * T;
     const int row = row_clip(clip0, r, rpc, B);
     const size_t kbase = ((size_t)row * T + t) * A;
@@ -275,7 +281,7 @@ __device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
     if (lane == 0) att[r * T + t] = mask[(size_t)row * T + t] > 0.f ? s : NEG;
   }
   __syncthreads();
-  for (int r = warp; r < ROWS; r += NWARPS) {
+  for (int r = warp; r < R; r += NWARPS) {
     const int row = row_clip(clip0, r, rpc, B);
     float* ar = att + r * T;
     float m = -INFINITY;
@@ -295,7 +301,7 @@ __device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
   if (!D.factored) {
     const WT* feats = static_cast<const WT*>(D.slab);
     const int F = D.F;
-    for (int i = tid; i < ROWS * F; i += NT) {
+    for (int i = tid; i < R * F; i += NT) {
       const int r = i / F, f = i - r * F;
       const int row = row_clip(clip0, r, rpc, B);
       float s = 0.f;
@@ -307,10 +313,13 @@ __device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
 }
 
 // This block's gate units: the x-side and h-side sums over its columns,
-// then the cell update (gates.cuh); the new h slice goes to buffer cur ^ 1
-// of every block of the cluster.  Lay holds h (two [ROWS][H] buffers), c
-// ([ROWS][own units]), x, att per decoder and the scratch part, ax, ah.
-template <typename WT, int G, typename Lay>
+// then the cell update (gates.cuh).  Lay holds h, c ([R][own units]), x,
+// att per decoder and the scratch part, ax, ah.  The new h slice goes
+// either (STAGE false) to buffer cur ^ 1 of every block of the cluster (h
+// is two [R][H] buffers), or (STAGE true) to this block's own staging
+// slice hs ([R][ceil(H / CL)]), which the peers pull after the next
+// cluster barrier (h is one [R][H] buffer, read here unchanged).
+template <typename WT, int G, int R = ROWS, bool STAGE = false, typename Lay>
 __device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
                       cg::cluster_group& cluster, int rank, int clip0, int rpc, int B, int T,
                       int cur) {
@@ -319,16 +328,16 @@ __device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
   const WT* P = static_cast<const WT*>(D.slab);
   float* ax = sm + Lo.ax;
   float* ah = sm + Lo.ah;
-  float* h_cur = sm + Lo.h[d] + cur * ROWS * H;
-  const int nxt_off = Lo.h[d] + (cur ^ 1) * ROWS * H;
+  float* h_cur = sm + Lo.h[d] + cur * R * H;
+  const int nxt_off = Lo.h[d] + (cur ^ 1) * R * H;
   const float* att = sm + Lo.att[d];
   float* c = sm + Lo.c[d];
 
-  matvec_cols<WT>(static_cast<const WT*>(D.wi), GH, Kx, sm + Lo.x[d], Kx, G * nu, nu, H, u0,
-                  sm + Lo.part, ax);
-  matvec_cols<WT>(static_cast<const WT*>(D.wh), GH, H, h_cur, H, G * nu, nu, H, u0,
-                  sm + Lo.part, ah);
-  for (int i = threadIdx.x; i < ROWS * nu; i += NT) {
+  matvec_cols<WT, R>(static_cast<const WT*>(D.wi), GH, Kx, sm + Lo.x[d], Kx, G * nu, nu, H, u0,
+                     sm + Lo.part, ax);
+  matvec_cols<WT, R>(static_cast<const WT*>(D.wh), GH, H, h_cur, H, G * nu, nu, H, u0,
+                     sm + Lo.part, ah);
+  for (int i = threadIdx.x; i < R * nu; i += NT) {
     const int r = i / nu, u = i - r * nu, n = u0 + u;
     const int row = row_clip(clip0, r, rpc, B);
     float gv[G], gh[G];
@@ -347,7 +356,10 @@ __device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
     float cc = c[r * U + u];
     const float hn = gate_update(D.cell, gv, gh, h_cur[r * H + n], cc);
     c[r * U + u] = cc;
-    for (int p = 0; p < CL; ++p) cluster.map_shared_rank(sm, p)[nxt_off + r * H + n] = hn;
+    if constexpr (STAGE)
+      sm[Lo.hs[d] + r * U + u] = hn;
+    else
+      for (int p = 0; p < CL; ++p) cluster.map_shared_rank(sm, p)[nxt_off + r * H + n] = hn;
   }
 }
 
@@ -355,20 +367,20 @@ __device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
 // then this block's slice of the attention query, written into every block
 // of the cluster.  Ends with the block synchronized; the caller syncs the
 // cluster before the query is read.
-template <typename WT, typename Lay>
+template <typename WT, int R = ROWS, typename Lay>
 __device__ void embed_and_query(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
                                 const int* prev, cg::cluster_group& cluster, int rank, int cur) {
   const WT* emb = static_cast<const WT*>(D.emb);
   const int E = D.E, Kx = step_input_width(D), H = D.H, A = D.A;
-  for (int i = threadIdx.x; i < ROWS * E; i += NT) {
+  for (int i = threadIdx.x; i < R * E; i += NT) {
     const int r = i / E, k = i - r * E;
     sm[Lo.x[d] + r * Kx + k] = ld(emb, (size_t)prev[r] * E + k);
   }
   const int Ac = cdiv(A, CL), a0 = rank * Ac, na = max(0, min(A, a0 + Ac) - a0);
   float* qs = sm + Lo.ax;          // scratch for the slice
-  matvec_cols<WT>(static_cast<const WT*>(D.attn_W), A, H, sm + Lo.h[d] + cur * ROWS * H, H,
-                  na, na, 0, a0, sm + Lo.part, qs);
-  for (int i = threadIdx.x; i < ROWS * na; i += NT) {
+  matvec_cols<WT, R>(static_cast<const WT*>(D.attn_W), A, H, sm + Lo.h[d] + cur * R * H, H,
+                     na, na, 0, a0, sm + Lo.part, qs);
+  for (int i = threadIdx.x; i < R * na; i += NT) {
     const int r = i / na, a = i - r * na;
     const float v = qs[i] + D.attn_b[a0 + a];
     for (int p = 0; p < CL; ++p) cluster.map_shared_rank(sm, p)[Lo.q[d] + r * A + a0 + a] = v;

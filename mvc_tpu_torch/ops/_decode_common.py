@@ -23,6 +23,7 @@ from mvc_tpu_torch.ops import _build
 from mvc_tpu_torch.ops._gates import apply_gates
 
 MAX_SMEM_BYTES = 232448          # dynamic shared memory a Hopper block may opt into
+                                 # (csrc/decode_common.cuh: SMEM_LIMIT)
 NEG = -1e30                      # masked attention energy, as the TPU kernels
 CELLS = {"LSTM": 0, "GRU": 1}
 
@@ -137,15 +138,18 @@ def fill_decoder_args(a: DecoderArgs, p: dict) -> None:
     a.cell, a.factored = CELLS[p["cell"]], int(p["factored"])
 
 
-def library(name: str, args_type):
+def library(name: str, args_type, n_extra: int = 0):
     """The loaded ``csrc/<name>.cu`` with its three C functions typed:
-    ``<name>_smem_bytes``, ``<name>_launch`` and ``<name>_error_string``."""
+    ``<name>_smem_bytes(args, *extra)``, ``<name>_launch(args, weight_bf16,
+    *extra, stream)`` and ``<name>_error_string``; ``extra`` is ``n_extra``
+    C ints (the beam kernel's row tile)."""
     lib = _build.load(name)
     if not getattr(lib, "_mvc_bound", False):
+        extra = [ctypes.c_int] * n_extra
         smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes, smem.restype = [ctypes.POINTER(args_type)], ctypes.c_size_t
+        smem.argtypes, smem.restype = [ctypes.POINTER(args_type)] + extra, ctypes.c_size_t
         launch_fn = getattr(lib, f"{name}_launch")
-        launch_fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_int, ctypes.c_void_p]
+        launch_fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_int] + extra + [ctypes.c_void_p]
         launch_fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
@@ -153,18 +157,19 @@ def library(name: str, args_type):
     return lib
 
 
-def launch(name: str, lib, args, weight_dtype, device) -> None:
-    """One launch of ``csrc/<name>.cu`` on the current stream of ``device``;
-    raises ValueError when a block would need more shared memory than the
-    card gives one, RuntimeError when the launch is refused."""
-    smem = getattr(lib, f"{name}_smem_bytes")(ctypes.byref(args))
+def launch(name: str, lib, args, weight_dtype, device, *extra: int) -> None:
+    """One launch of ``csrc/<name>.cu`` on the current stream of ``device``
+    (``extra``: the C ints ``library`` typed); raises ValueError when a
+    block would need more shared memory than the card gives one,
+    RuntimeError when the launch is refused."""
+    smem = getattr(lib, f"{name}_smem_bytes")(ctypes.byref(args), *extra)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"T={args.T} frames needs {smem} bytes of shared memory per block at these "
             f"widths; the kernel's limit is {MAX_SMEM_BYTES} (cut the clip or split it)")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, f"{name}_launch")(ctypes.byref(args),
-                                          int(weight_dtype == torch.bfloat16), stream)
+                                          int(weight_dtype == torch.bfloat16), *extra, stream)
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")

@@ -16,6 +16,12 @@ The keys ``feats @ U`` and the factored slab ``P = feats @ wi_ctx`` stay
 ``torch.matmul`` outside the kernel (``ops/_decode_common.py``).
 ``beam_decode`` launches the kernel for CUDA tensors and takes
 ``beam_decode_reference`` only for CPU tensors.
+
+The kernel runs on a tile of 15 rows (three clips at W=5) or 8 rows (one
+clip at W=5); it picks the 15-row tile when that fits a block's shared
+memory and holds more whole clips, which at the serving widths is every
+frame bucket up to T=147 (dual model) or T=1618 (single model), and the
+8-row tile for longer clips (``csrc/beam.cu:tile_rows``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from mvc_tpu_torch.config import EOS_ID, SOS_ID
 from mvc_tpu_torch.ops import _decode_common as _dc
 
 NEG_INF = -1e9                   # dead-beam start score, as models/beam.py
+TILES = (15, 8)                  # the kernel's row tiles; rows=0 lets it pick
 
 
 def _check(decoder_params, feats_list, feat_mask, max_caption_len, beam_width,
@@ -150,16 +157,27 @@ class _BeamArgs(ctypes.Structure):
 
 
 def _library():
-    lib = _dc.library("beam", _BeamArgs)
-    lib.beam_max_width.argtypes, lib.beam_max_width.restype = [], ctypes.c_int
+    lib = _dc.library("beam", _BeamArgs, n_extra=1)
+    if not getattr(lib, "_mvc_beam_bound", False):
+        args_p = ctypes.POINTER(_BeamArgs)
+        lib.beam_max_width.argtypes, lib.beam_max_width.restype = [], ctypes.c_int
+        lib.beam_tile_rows.argtypes, lib.beam_tile_rows.restype = [args_p], ctypes.c_int
+        lib.beam_max_active_clusters.argtypes = [args_p, ctypes.c_int, ctypes.c_int]
+        lib.beam_max_active_clusters.restype = ctypes.c_int
+        lib._mvc_beam_bound = True
     return lib
 
 
-def _launch(args: _BeamArgs, weight_dtype, device) -> None:
-    """One kernel launch on the current stream of ``device``; raises if the
-    launch is refused.  The tensors behind ``args`` must outlive the call's
-    enqueue (PyTorch's allocator orders their reuse on the same stream)."""
-    _dc.launch("beam", _library(), args, weight_dtype, device)
+def _launch(args: _BeamArgs, weight_dtype, device, rows: int = 0) -> None:
+    """One kernel launch on the current stream of ``device`` with a
+    ``rows``-row tile (0: the kernel's choice by shape; else one of
+    ``TILES``); raises ValueError if the tile does not fit a block's shared
+    memory, RuntimeError if the launch is refused.  The tensors behind
+    ``args`` must outlive the call's enqueue (PyTorch's allocator orders
+    their reuse on the same stream)."""
+    if rows not in (0,) + TILES:
+        raise ValueError(f"the beam kernel's row tile is one of {TILES} (or 0), got {rows}")
+    _dc.launch("beam", _library(), args, weight_dtype, device, int(rows))
     beam_decode.launches += 1
 
 
@@ -212,8 +230,9 @@ def beam_decode(
     the current stream (asynchronously; ``beam_decode.launches`` counts
     launches, from one thread at a time); CPU tensors take the plain
     version.  Anything the kernel cannot take raises ValueError: a beam
-    wider than its row tile (8) or a clip longer than a block's shared
-    memory holds (the plain version has neither limit)."""
+    wider than 8 or a clip longer than a block's shared memory holds with
+    the 8-row tile (T=1842 at the dual model's widths; the plain version
+    has neither limit)."""
     device = feats_list[0].device
     if device.type == "cpu":
         return beam_decode_reference(decoder_params, feats_list, feat_mask, max_caption_len,

@@ -5,11 +5,16 @@
 plain version of the CUDA beam kernel (``beam_decode_reference``) against
 the JAX Pallas kernel run in interpret mode and against the XLA scan, for
 the same weights carried across by the bridge.  Widths are those of
-tests/test_pallas.py's beam cases.  Tokens are compared exactly although
+tests/test_pallas.py's beam cases; the beam widths (1 to 8) and batch
+sizes (4 and 7 clips: not whole groups of the CUDA kernel's three clips
+per 15-row tile) cover the kernel's packings.  Tokens are compared exactly although
 the summation order differs between the frameworks: the output projection
 is scaled up so that no top-W decision sits on a near-tie (the tests also
 check that the tokens vary).
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +34,8 @@ from mvc_tpu_torch.models import attention as tattn
 from mvc_tpu_torch.models import beam as tbeam
 from mvc_tpu_torch.models import decoder as tdec
 from mvc_tpu_torch.models.captioning import AVCaptioningDual, _beam_init_state
-from mvc_tpu_torch.ops.beam import beam_decode, beam_decode_reference
+from mvc_tpu_torch.ops import _decode_common as _dc
+from mvc_tpu_torch.ops.beam import TILES, _launch, beam_decode, beam_decode_reference
 from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
 
 V = 29
@@ -51,7 +57,10 @@ def _decoder(cfg, key, eos_bias=0.0):
     return p
 
 
-# name: (cells, B, T, L, W, alpha, masked, eos_bias); one cell = visual only
+# name: (cells, B, T, L, W, alpha, masked, eos_bias); one cell = visual only.
+# The eos-staggered cases move EOS just enough that the clips of one batch
+# stop at different steps (some never); the wide cases push it down so the
+# search does not end on a first-step EOS.
 CASES = {
     "dual-lstm": (("LSTM", "LSTM"), 4, 6, 11, 4, 0.0, True, 0.0),
     "dual-lstm-alpha": (("LSTM", "LSTM"), 4, 6, 11, 4, 0.7, True, 0.0),
@@ -60,6 +69,10 @@ CASES = {
     "dual-gru-lstm-alpha": (("GRU", "LSTM"), 3, 5, 8, 3, 0.7, True, 0.0),
     "dual-w1": (("LSTM", "LSTM"), 4, 6, 9, 1, 0.0, True, 0.0),
     "eos-heavy": (("LSTM",), 4, 4, 20, 3, 0.7, False, 4.0),
+    "dual-w8": (("LSTM", "LSTM"), 4, 6, 9, 8, 0.0, True, -3.0),
+    "dual-b7": (("LSTM", "LSTM"), 7, 5, 9, 5, 0.7, True, -3.0),
+    "eos-staggered": (("GRU", "LSTM"), 7, 5, 16, 5, 0.7, False, -0.5),
+    "eos-staggered-w3": (("LSTM",), 7, 4, 20, 3, 0.7, False, 0.1),
 }
 
 
@@ -131,7 +144,7 @@ def _check_tokens(got, c):
     assert got.shape == (c["B"], c["L"] + 2) and got.dtype == np.int32
     assert (got[:, 0] == 1).all()                              # SOS
     # not one repeated token (an EOS-heavy search stops early on few tokens)
-    assert len(np.unique(got[:, 1:])) > (1 if c["eos_bias"] else 2)
+    assert len(np.unique(got[:, 1:])) > (1 if c["eos_bias"] > 0 else 2)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
@@ -172,7 +185,7 @@ def test_decoder_beam_step_matches_jax(cell, masked, factored):
 
 
 @pytest.mark.parametrize("name", ["dual-lstm", "dual-lstm-alpha", "single-lstm", "single-gru",
-                                  "dual-gru-lstm-alpha", "dual-w1"])
+                                  "dual-gru-lstm-alpha", "dual-w1", "dual-w8", "dual-b7"])
 def test_beam_search_matches_jax(name):
     c = _case(name)
     want = _jax_scan(c)
@@ -182,7 +195,8 @@ def test_beam_search_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", ["dual-lstm", "dual-lstm-alpha", "single-lstm",
-                                  "dual-gru-lstm-alpha", "eos-heavy"])
+                                  "dual-gru-lstm-alpha", "eos-heavy", "dual-w1", "dual-w8",
+                                  "dual-b7", "eos-staggered", "eos-staggered-w3"])
 def test_reference_matches_pallas_interpret_and_xla(name):
     c = _case(name)
     got = _reference(c).numpy()
@@ -210,6 +224,24 @@ def test_early_exit_steps():
     # after the search stops, beam 0's history holds only zeros
     for row, s in zip(tokens, steps):
         assert (row[1 + s:] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["eos-staggered", "eos-staggered-w3"])
+def test_per_clip_steps(name):
+    """Clips of one batch stop at different steps, and each clip's count is
+    its own: the count of the same clip searched alone (where the search
+    ends with it), with the lone search's tokens and only zeros after the
+    count, however long the other clips run."""
+    c = _case(name)
+    tokens, steps = (x.numpy() for x in _reference(c, return_steps=True))
+    assert len(set(steps.tolist())) > 2 and steps.min() < c["L"] + 1
+    for b in range(c["B"]):
+        alone = dict(c, B=1, feats=[f[b:b + 1] for f in c["feats"]],
+                     mask=None if c["mask"] is None else c["mask"][b:b + 1])
+        tok_b, steps_b = _reference(alone, return_steps=True)
+        assert steps[b] == int(steps_b[0])
+        np.testing.assert_array_equal(tokens[b], tok_b[0].numpy())
+        assert (tokens[b, 1 + steps[b]:] == 0).all()
 
 
 @pytest.mark.parametrize("cells", [("LSTM", "LSTM"), ("GRU", "LSTM")], ids=["lstm-lstm", "gru-lstm"])
@@ -243,6 +275,21 @@ def test_predict_tokens_beam_matches_jax_model(cells):
     assert beam_decode.launches == before == 0
 
 
+def test_kernel_constants_match_the_wrappers():
+    """The CUDA sources' shared-memory limit and row tiles are the ones the
+    wrappers check against and name."""
+    csrc = Path(_dc.__file__).resolve().parent.parent / "csrc"
+    common = (csrc / "decode_common.cuh").read_text()
+    beam_src = (csrc / "beam.cu").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))
+
+    assert const(common, "SMEM_LIMIT") == _dc.MAX_SMEM_BYTES
+    assert (const(beam_src, "WIDE_ROWS"), const(common, "ROWS")) == TILES
+    assert const(beam_src, "MAX_WIDTH") == 8
+
+
 def test_beam_wrapper_rejects_what_it_cannot_take():
     c = _case("dual-lstm")
     params = [from_numpy_tree(p) for p in c["params"]]
@@ -259,3 +306,5 @@ def test_beam_wrapper_rejects_what_it_cannot_take():
         beam_decode(params, [feats[0], feats[1][:, :2]])
     with pytest.raises(ValueError):
         beam_decode(params, feats, rnn_types=("GRU", "LSTM"))      # wi width is 4H
+    with pytest.raises(ValueError):                                 # not one of TILES
+        _launch(None, torch.float32, torch.device("cpu"), rows=12)
