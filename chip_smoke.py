@@ -153,6 +153,78 @@ def largest_t(lib_fn, args, limit):
     return t_max
 
 
+PHASES = ("embed + query", "query cluster barrier", "attention", "gates",
+          "gates cluster barrier", "vocab matvec", "argmax + exchange + barrier")
+
+
+def phase_timers(card, label, name, lib, args, dtype, device):
+    """Per-phase µs per step of a greedy kernel from its timed instantiation
+    (``<name>_launch_timed``): clock64 marks of thread 0 of cluster 0,
+    converted with the SM clock the kernel itself saw (clock64 cycles over
+    %globaltimer ns between its first and last cluster barrier).  Steps 1..
+    L-2 (the first step also pays for the cold start).  Returns
+    {phase: µs}, with "step" the mean step."""
+    from mvc_tpu_torch.ops import _decode_common as dc
+
+    for _ in range(3):
+        timer = dc.launch_timed(name, lib, args, dtype, device)
+    torch.cuda.synchronize()
+    t = timer.cpu().numpy().astype(np.float64)
+    ghz = (t[3] - t[1]) / (t[2] - t[0])             # cycles per ns
+    marks = t[dc.TIMER_HEAD:].reshape(args.max_len - 1, dc.N_MARKS)[1:]
+    us = np.diff(marks, axis=1).mean(axis=0) / ghz / 1e3
+    out = dict(zip(PHASES, (float(x) for x in us)))
+    out["step"] = float((marks[:, -1] - marks[:, 0]).mean() / ghz / 1e3)
+    log(f"[{card}] {label} per-phase µs per step (B={args.B} T={args.T}, SM clock "
+        f"{ghz:.3f} GHz, kernel {(t[2] - t[0]) / 1e6:.4f} ms between the first and last "
+        f"cluster barrier): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def sass_bodies(lib_path):
+    """{kernel name: sha256 of its SASS} of a built library, by cuobjdump."""
+    import hashlib
+    import os
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name, body = {}, None, []
+    for line in text.splitlines() + ["Function : <end>"]:
+        if "Function :" in line:
+            if name is not None:
+                out[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()
+            name, body = line.split("Function :")[1].strip(), []
+        elif name is not None and line.strip():
+            body.append(line.strip())
+    return out
+
+
+def compare_sass(build, other_root):
+    """Each kernel of ``other_root``'s CUDA sources (another checkout), built
+    with the same nvcc flags, against this checkout's build: the kernels of
+    the other build whose SASS appears unchanged in this one."""
+    from pathlib import Path
+
+    other = Path(other_root).resolve() / "mvc_tpu_torch" / "csrc"
+    out_dir = build.BUILD_DIR / "against"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(other), "-o",
+                                  str(out_dir / f"lib{n}.so"), str(other / f"{n}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for n in build.KERNELS if (other / f"{n}.cu").exists()}
+    for n, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {other}/{n}.cu:\n{text}")
+        old = sass_bodies(out_dir / f"lib{n}.so")
+        new = sass_bodies(build._library_path(n))
+        same = sorted(k for k, v in old.items() if v in new.values())
+        log(f"SASS of {n}.cu against {other_root}: {len(same)} of {len(old)} kernels of that "
+            f"build unchanged here ({len(new)} here); unchanged: {same}; digests here: "
+            f"{json.dumps(new)}")
+
+
 def check_greedy(name, kernel_fn, plain_fn, label, mask, exact):
     """A greedy kernel's tokens against its plain version's on the same
     inputs; ``exact`` requires every token equal."""
@@ -170,6 +242,8 @@ def check_greedy(name, kernel_fn, plain_fn, label, mask, exact):
         raise SystemExit(f"{name} kernel tokens break the output contract")
     if exact and same != 1.0:
         raise SystemExit(f"{name} kernel disagrees with its plain version ({label})")
+    if not exact and same < 0.998:
+        raise SystemExit(f"{name} kernel agrees on {same:.6f} < 99.8 % of tokens ({label})")
     return float(err)
 
 
@@ -411,6 +485,9 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "smem", "entry function")):
                 log(f"  {src}: {line.strip()}")
 
+    if "--against" in sys.argv:
+        compare_sass(_build, sys.argv[sys.argv.index("--against") + 1])
+
     # -- 3. kernels vs plain at full width
     model = AVCaptioningDual(vocab_size=V, device=device)
     params = model.init(torch.Generator().manual_seed(0))
@@ -594,7 +671,18 @@ def main() -> int:
     log(f"dual_greedy shared memory per block at T={T}: "
         f"{lib.dual_greedy_smem_bytes(ctypes.byref(g_args))} bytes; largest T at these widths: "
         f"{largest_t(lib.dual_greedy_smem_bytes, g_args, dc.MAX_SMEM_BYTES)}")
+    phase_timers(card, "dual_greedy f32", "dual_greedy", lib, g_args, f32, device)
     del g_keep
+    bf = torch.bfloat16
+    gb_args, _tok, gb_keep = dg.prepare_kernel_call(bf16, feats, mask, L, bf, cells)
+    gb_ms, gb_plain, gb_launch = time_calls(
+        lambda: dg.dual_greedy_decode(bf16, feats, mask, L, bf, cells),
+        lambda: dg.dual_greedy_decode_reference(bf16, feats, mask, L, bf, cells),
+        lambda: dg._launch(gb_args, bf, device))
+    log(f"[{card}] dual_greedy_decode bf16 B={B} T={T}: wrapper {gb_ms:.4f} ms, kernel launch "
+        f"alone {gb_launch:.4f} ms, plain {gb_plain:.4f} ms (token agreement above)")
+    phase_timers(card, "dual_greedy bf16", "dual_greedy", lib, gb_args, bf, device)
+    del gb_keep
 
     b_args, _tok, b_steps, b_keep = bm.prepare_kernel_call(decoders, feats, mask, L, W, 0.0,
                                                            f32, cells)
@@ -644,6 +732,7 @@ def main() -> int:
             log(f"greedy shared memory per block at T={T}: "
                 f"{slib.greedy_smem_bytes(ctypes.byref(s_args))} bytes; largest T at these "
                 f"widths: {largest_t(slib.greedy_smem_bytes, s_args, dc.MAX_SMEM_BYTES)}")
+        phase_timers(card, f"greedy {wd}", "greedy", gr._library(), s_args, wd, device)
         del s_keep
     s_ms, s_plain, s_bound, s_by = s_times[f32]
 

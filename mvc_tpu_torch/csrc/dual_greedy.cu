@@ -39,7 +39,14 @@ size_t dual_greedy_smem_bytes(const DualGreedyArgs* args) { return greedy_smem(*
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 int dual_greedy_launch(const DualGreedyArgs* args, int weight_bf16, void* stream) {
-  return greedy_launch_any(*args, weight_bf16, stream);
+  return greedy_launch_any(*args, weight_bf16, nullptr, stream);
+}
+
+// The same launch through the timed instantiation: per-phase clock64()
+// marks of every step into `timer` (greedy_common.cuh: TIMER_HEAD +
+// (max_len - 1) * N_MARKS int64).  For measurement only.
+int dual_greedy_launch_timed(const DualGreedyArgs* args, int weight_bf16, long long* timer, void* stream) {
+  return greedy_launch_any(*args, weight_bf16, timer, stream);
 }
 
 const char* dual_greedy_error_string(int code) {

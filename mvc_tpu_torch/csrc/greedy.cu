@@ -42,7 +42,14 @@ size_t greedy_smem_bytes(const GreedyArgs* args) { return greedy_smem(*args); }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 int greedy_launch(const GreedyArgs* args, int weight_bf16, void* stream) {
-  return greedy_launch_any(*args, weight_bf16, stream);
+  return greedy_launch_any(*args, weight_bf16, nullptr, stream);
+}
+
+// The same launch through the timed instantiation: per-phase clock64()
+// marks of every step into `timer` (greedy_common.cuh: TIMER_HEAD +
+// (max_len - 1) * N_MARKS int64).  For measurement only.
+int greedy_launch_timed(const GreedyArgs* args, int weight_bf16, long long* timer, void* stream) {
+  return greedy_launch_any(*args, weight_bf16, timer, stream);
 }
 
 const char* greedy_error_string(int code) {

@@ -78,9 +78,41 @@ __host__ __device__ inline Layout<ND> layout(const GreedyArgsT<ND>& a) {
   return L;
 }
 
-template <typename WT, int ND>
+// Per-phase timers of the step loop (the TIMED instantiation only; see
+// greedy_launch_timed).  Thread 0 of block 0 (rank 0 of cluster 0) records
+// clock64() at N_MARKS points of every step into timer[TIMER_HEAD + step *
+// N_MARKS + m]; timer[0..3] hold %globaltimer (ns) and clock64() after the
+// first cluster barrier and after the last, so the caller can convert
+// cycles to time.  Marks: step start, then the ends of embed + query, the
+// query cluster barrier, attention, gates, the gates cluster barrier, the
+// vocab matvec, and argmax + candidate exchange + barrier.
+constexpr int N_MARKS = 8;
+constexpr int TIMER_HEAD = 4;
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+template <bool TIMED>
+__device__ __forceinline__ void mark(long long* timer, int i) {
+  if constexpr (TIMED)
+    if (blockIdx.x == 0 && threadIdx.x == 0) timer[i] = clock64();
+}
+
+template <bool TIMED>
+__device__ __forceinline__ void mark_wall(long long* timer, int i) {
+  if constexpr (TIMED)
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      timer[i] = global_ns();
+      timer[i + 1] = clock64();
+    }
+}
+
+template <typename WT, int ND, bool TIMED>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
-greedy_kernel(const GreedyArgsT<ND> args) {
+greedy_kernel(const GreedyArgsT<ND> args, long long* timer) {
   constexpr int S = n_streams<ND>();
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -103,17 +135,22 @@ greedy_kernel(const GreedyArgsT<ND> args) {
   if (rank == 0 && tid < ROWS && row0 + tid < B)
     args.tokens[(size_t)(row0 + tid) * args.max_len] = 0;
   cluster.sync();                      // every peer is running before any remote write
+  mark_wall<TIMED>(timer, 0);
 
   const int Vc = cdiv(V, CL), v0 = rank * Vc, v1 = min(V, v0 + Vc);
   for (int step = 0; step < args.max_len - 1; ++step) {
     const int cur = step & 1;
+    long long* tm = timer + TIMER_HEAD + step * N_MARKS;
+    mark<TIMED>(tm, 0);
 
     // -- embeddings of each decoder's own previous token; this block's
     //    slice of the attention query, gathered into every peer
 #pragma unroll
     for (int d = 0; d < ND; ++d)
       embed_and_query<WT>(args.dec[d], sm, Lo, d, prev + d * ROWS, cluster, rank, cur);
+    mark<TIMED>(tm, 1);
     cluster.sync();
+    mark<TIMED>(tm, 2);
 
     // -- attention (every block, every decoder), then this block's gate units
 #pragma unroll
@@ -121,6 +158,7 @@ greedy_kernel(const GreedyArgsT<ND> args) {
       attention<WT>(args.dec[d], sm, Lo, d, args.mask, row0, 1, B, T);
       __syncthreads();
     }
+    mark<TIMED>(tm, 3);
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
       if (args.dec[d].cell == MVC_CELL_LSTM)
@@ -129,7 +167,9 @@ greedy_kernel(const GreedyArgsT<ND> args) {
         gates<WT, 3>(args.dec[d], sm, Lo, d, cluster, rank, row0, 1, B, T, cur);
       __syncthreads();
     }
+    mark<TIMED>(tm, 4);
     cluster.sync();
+    mark<TIMED>(tm, 5);
 
     // -- this block's vocab slice of every projection; S running argmaxes
     //    per row (each decoder's own; with two decoders also the fused one)
@@ -140,6 +180,7 @@ greedy_kernel(const GreedyArgsT<ND> args) {
       matvec_cols<WT>(static_cast<const WT*>(D.wout), V, D.H, sm + Lo.h[d] + (cur ^ 1) * ROWS * D.H,
                       D.H, nv, nv, 0, v0, sm + Lo.part, sm + Lo.logits + d * ROWS * Vc);
     }
+    mark<TIMED>(tm, 6);
     float bval[S][ROWS];
     int bidx[S][ROWS];
 #pragma unroll
@@ -201,8 +242,10 @@ greedy_kernel(const GreedyArgsT<ND> args) {
         args.tokens[(size_t)(row0 + r) * args.max_len + step + 1] = bi;
     }
     __syncthreads();
+    mark<TIMED>(tm, 7);
   }
   cluster.sync();                      // no block leaves while a peer may still write to it
+  mark_wall<TIMED>(timer, 2);
 }
 
 template <int ND>
@@ -210,24 +253,30 @@ size_t greedy_smem(const GreedyArgsT<ND>& a) {
   return (size_t)layout(a).total * sizeof(float);
 }
 
-template <typename WT, int ND>
-int greedy_launch_on(const GreedyArgsT<ND>& a, cudaStream_t stream) {
+template <typename WT, int ND, bool TIMED>
+int greedy_launch_on(const GreedyArgsT<ND>& a, long long* timer, cudaStream_t stream) {
   const size_t bytes = greedy_smem(a);
-  cudaError_t err = cudaFuncSetAttribute(greedy_kernel<WT, ND>,
+  cudaError_t err = cudaFuncSetAttribute(greedy_kernel<WT, ND, TIMED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = cdiv(a.B, ROWS) * CL;
-  greedy_kernel<WT, ND><<<blocks, NT, bytes, stream>>>(a);
+  greedy_kernel<WT, ND, TIMED><<<blocks, NT, bytes, stream>>>(a, timer);
   return (int)cudaGetLastError();
 }
 
 // Launches on `stream` with float32 or bfloat16 weights; returns
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched).  A non-null `timer` (int64,
+// TIMER_HEAD + (max_len - 1) * N_MARKS entries) takes the timed
+// instantiation, which records the per-phase clocks.
 template <int ND>
-int greedy_launch_any(const GreedyArgsT<ND>& a, int weight_bf16, void* stream) {
+int greedy_launch_any(const GreedyArgsT<ND>& a, int weight_bf16, long long* timer,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return weight_bf16 ? greedy_launch_on<__nv_bfloat16, ND>(a, s)
-                     : greedy_launch_on<float, ND>(a, s);
+  if (timer)
+    return weight_bf16 ? greedy_launch_on<__nv_bfloat16, ND, true>(a, timer, s)
+                       : greedy_launch_on<float, ND, true>(a, timer, s);
+  return weight_bf16 ? greedy_launch_on<__nv_bfloat16, ND, false>(a, nullptr, s)
+                     : greedy_launch_on<float, ND, false>(a, nullptr, s);
 }
 
 }  // namespace

@@ -29,8 +29,11 @@ from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.ops.beam import beam_decode
+from mvc_tpu_torch.ops.beam import max_frames as beam_max_frames
 from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode
+from mvc_tpu_torch.ops.dual_greedy import max_frames as dual_greedy_max_frames
 from mvc_tpu_torch.ops.greedy import greedy_decode
+from mvc_tpu_torch.ops.greedy import max_frames as greedy_max_frames
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -164,6 +167,14 @@ class AVCaptioning:
                                      beam_width, feat_mask)
         return captions_from_tokens(vocab, tokens)
 
+    def max_frames(self, params, batch: int, mode: str = "direct", beam_width: int = 5) -> int:
+        """The largest T the card's kernel for ``mode`` takes at this model's
+        widths and ``batch`` clips (``greedy.cu`` or ``beam.cu``)."""
+        decoder = params["decoder"]
+        if mode == "beam":
+            return beam_max_frames([decoder], (self.decoder_config.rnn_type,), batch, beam_width)
+        return greedy_max_frames(decoder, self.decoder_config.rnn_type, batch)
+
 
 class AVCaptioningDual:
     """Dual-stream late-fusion captioner — the model the reference trains.
@@ -228,6 +239,15 @@ class AVCaptioningDual:
                 dtype=self.dtype, stop_at_all_eos=stop_at_all_eos)
         return self._beam_tokens(params, audio, visual, max_caption_len, beam_alpha,
                                  beam_width, feat_mask)
+
+    def max_frames(self, params, batch: int, mode: str = "direct", beam_width: int = 5) -> int:
+        """The largest T the card's kernel for ``mode`` takes at this model's
+        widths and ``batch`` clips (``dual_greedy.cu`` or ``beam.cu``)."""
+        decoders = [params["v_decoder"], params["a_decoder"]]
+        rnn_types = (self.v_config.rnn_type, self.a_config.rnn_type)
+        if mode == "beam":
+            return beam_max_frames(decoders, rnn_types, batch, beam_width)
+        return dual_greedy_max_frames(decoders, rnn_types, batch)
 
     def _beam_tokens(self, params, audio, visual, max_caption_len, beam_alpha, beam_width,
                      feat_mask):

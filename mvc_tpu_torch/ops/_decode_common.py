@@ -25,6 +25,8 @@ from mvc_tpu_torch.ops._gates import apply_gates
 MAX_SMEM_BYTES = 232448          # dynamic shared memory a Hopper block may opt into
                                  # (csrc/decode_common.cuh: SMEM_LIMIT)
 NEG = -1e30                      # masked attention energy, as the TPU kernels
+MAX_FRAMES_SEARCH = 1 << 16      # max_frames searches T up to here
+N_MARKS, TIMER_HEAD = 8, 4       # the greedy kernels' phase timers (csrc/greedy_common.cuh)
 CELLS = {"LSTM": 0, "GRU": 1}
 
 
@@ -153,6 +155,11 @@ def library(name: str, args_type, n_extra: int = 0):
         launch_fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        timed = getattr(lib, f"{name}_launch_timed", None)
+        if timed is not None:
+            timed.argtypes = [ctypes.POINTER(args_type), ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p]
+            timed.restype = ctypes.c_int
         lib._mvc_bound = True
     return lib
 
@@ -173,6 +180,48 @@ def launch(name: str, lib, args, weight_dtype, device, *extra: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def launch_timed(name: str, lib, args, weight_dtype, device) -> torch.Tensor:
+    """One launch of a greedy kernel's timed instantiation
+    (``<name>_launch_timed``); returns its int64 clock record on the card
+    (``csrc/greedy_common.cuh``: ``TIMER_HEAD`` wall/clock pairs, then
+    ``N_MARKS`` clock64 marks per step).  For measurement only."""
+    timer = torch.zeros(TIMER_HEAD + (args.max_len - 1) * N_MARKS, dtype=torch.int64,
+                        device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, f"{name}_launch_timed")(ctypes.byref(args),
+                                                int(weight_dtype == torch.bfloat16),
+                                                timer.data_ptr(), stream)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} timed kernel launch failed: {msg} ({err})")
+    return timer
+
+
+def max_frames(smem_fn, args, decoder_params, rnn_types, batch: int, *extra: int) -> int:
+    """The largest T whose block fits the card's shared memory
+    (``MAX_SMEM_BYTES``), asked of the kernel's own ``<name>_smem_bytes``
+    at the decoders' widths (F is read from ``wi``) and a batch of
+    ``batch`` clips, which sets each decoder's branch (factored or direct)
+    at every T; 0 when no T fits.  ``args`` is the kernel's argument block
+    with its other fields (V, W, ...) set; only its dims are read."""
+    dims = []
+    for p, cell in zip(decoder_params, rnn_types):
+        E = p["embedding"]["table"].shape[1]
+        K, GH = p["rnn"]["wi"].shape
+        dims.append((K - E, GH // (4 if cell == "LSTM" else 3), p["attention"]["W"].shape[1], E,
+                     CELLS[cell], GH))
+    best = 0
+    for T in range(1, MAX_FRAMES_SEARCH + 1):
+        for a, (F, H, A, E, cell, GH) in zip(args.dec, dims):
+            a.F, a.H, a.A, a.E, a.cell = F, H, A, E, cell
+            a.factored = int(_use_factored(batch * T, F, GH))
+        args.T = T
+        if smem_fn(ctypes.byref(args), *extra) > MAX_SMEM_BYTES:
+            break
+        best = T
+    return best
 
 
 def check_greedy(decoder_params, feats_list, feat_mask, max_caption_len, weight_dtype,

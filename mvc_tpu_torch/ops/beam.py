@@ -210,6 +210,23 @@ def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_
     return args, tokens, steps, (prep, mask)
 
 
+def max_width() -> int:
+    """The widest beam the kernel takes (``beam_max_width``); builds the
+    kernel on first use."""
+    return int(_library().beam_max_width())
+
+
+def max_frames(decoder_params, rnn_types=("LSTM", "LSTM"), batch: int = 64,
+               beam_width: int = 5) -> int:
+    """The largest T the kernel takes for these 1 or 2 decoders at
+    ``batch`` clips of ``beam_width`` beams, on the row tile it picks, by its
+    own shared-memory need; builds the kernel on first use."""
+    args = _BeamArgs()
+    args.V = decoder_params[0]["embedding"]["table"].shape[0]
+    args.B, args.W, args.Lh, args.n_dec = batch, int(beam_width), 2, len(decoder_params)
+    return _dc.max_frames(_library().beam_smem_bytes, args, decoder_params, rnn_types, batch, 0)
+
+
 def beam_decode(
     decoder_params: Sequence[dict],
     feats_list: Sequence[torch.Tensor],

@@ -65,6 +65,17 @@ def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_
                                   n_decoders=2)
 
 
+def max_frames(decoder_params, rnn_types=("LSTM", "LSTM"), batch: int = 64) -> int:
+    """The largest T the kernel takes for these decoders (their widths, and
+    the branch each takes at ``batch`` clips), by the kernel's own
+    shared-memory need; builds the kernel on first use."""
+    args = _DualGreedyArgs()
+    args.V = decoder_params[0]["embedding"]["table"].shape[0]
+    args.B, args.max_len = batch, 2
+    return _dc.max_frames(_library().dual_greedy_smem_bytes, args, decoder_params, rnn_types,
+                          batch)
+
+
 def dual_greedy_decode(
     decoder_params: Sequence[dict],
     feats_list: Sequence[torch.Tensor],

@@ -77,6 +77,17 @@ def prepare_kernel_call(decoder_params, feats, feat_mask=None, max_caption_len=3
                                   n_decoders=1)
 
 
+def max_frames(decoder_params: dict, rnn_type: str = "LSTM", batch: int = 64) -> int:
+    """The largest T the kernel takes for this decoder (its widths, and the
+    branch it takes at ``batch`` clips), by the kernel's own shared-memory
+    need; builds the kernel on first use."""
+    args = _GreedyArgs()
+    args.V = decoder_params["embedding"]["table"].shape[0]
+    args.B, args.max_len = batch, 2
+    return _dc.max_frames(_library().greedy_smem_bytes, args, _one(decoder_params),
+                          (rnn_type,), batch)
+
+
 def greedy_decode(
     decoder_params: dict,
     feats: torch.Tensor,

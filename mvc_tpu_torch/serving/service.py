@@ -5,6 +5,11 @@
   axis is always padded to ``max_batch``.  Padded rows carry
   ``feat_mask=False`` and zero features, so a request's caption is the same
   whether it shared a batch or rode alone.
+- **Kernel limits.** On the card the service asks the model's kernel, at
+  construction, for the largest ``t_pad`` it takes (``model.max_frames``);
+  ``submit`` raises ValueError for a longer clip, so it fails alone instead
+  of failing the batch it would have joined.  A beam wider than the beam
+  kernel takes fails construction.  The CPU path has neither limit.
 - **One worker, one card.** A background thread collects a batch (it waits
   ``max_wait_ms`` after the first queued request, or until ``max_batch``
   are in hand, filling in priority then arrival order), copies it to the
@@ -35,6 +40,7 @@ import torch
 
 from mvc_tpu_torch.data.dataset import _bucket
 from mvc_tpu_torch.models.captioning import captions_from_tokens
+from mvc_tpu_torch.ops.beam import max_width as beam_max_width
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -125,6 +131,14 @@ class CaptionService:
         self.model = model
         self.params = _tree_to(params, self.device)
         self.vocab = vocab
+        # the card's kernels bound the beam width and the clip length; an
+        # over-limit clip fails alone at submit (the CPU path has no limit)
+        if self.config.mode == "beam":
+            w_max = self._kernel_width_limit()
+            if w_max is not None and self.config.beam_width > w_max:
+                raise ValueError(f"beam_width={self.config.beam_width}: the card's beam kernel "
+                                 f"takes at most {w_max}")
+        self.max_frames = self._kernel_frame_limit()
 
         # priority queue: a plain list + condition (the bound keeps it small);
         # best = min (priority, seq), victim = max
@@ -169,6 +183,11 @@ class CaptionService:
         t = visual.shape[0]
         if t < 1:
             raise ValueError("empty clip: T must be >= 1")
+        t_pad = _bucket(t, self.config.frame_buckets)
+        if self.max_frames is not None and t_pad > self.max_frames:
+            raise ValueError(f"a clip of T={t} frames pads to {t_pad}, above the "
+                             f"{self.max_frames} frames the card's kernel takes at this "
+                             f"model's widths")
         if audio is None:
             audio = np.zeros((t, self.config.audio_dim), dtype=np.float32)
         else:
@@ -204,6 +223,19 @@ class CaptionService:
             victim.future.set_exception(ServiceOverloaded(
                 f"evicted by a priority-{req.priority} arrival (own priority {victim.priority})"))
         return req.future
+
+    def _kernel_width_limit(self) -> Optional[int]:
+        """The widest beam the card's kernel takes; None on the CPU."""
+        return beam_max_width() if self.device.type == "cuda" else None
+
+    def _kernel_frame_limit(self) -> Optional[int]:
+        """The largest padded clip the card's kernel takes for this model,
+        mode and batch, from the kernel's own shared-memory need; None on
+        the CPU."""
+        if self.device.type != "cuda":
+            return None
+        cfg = self.config
+        return self.model.max_frames(self.params, cfg.max_batch, cfg.mode, cfg.beam_width)
 
     def caption(self, visual: np.ndarray, audio: Optional[np.ndarray] = None,
                 timeout: Optional[float] = None) -> str:

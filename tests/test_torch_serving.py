@@ -214,6 +214,45 @@ def test_single_model_service_matches_jax_service(tiny, mode):
     assert stats["mode"] == mode and stats["requests"] == 6 and stats["batches"] < 6
 
 
+def test_over_limit_clip_fails_alone(tiny, monkeypatch):
+    """A clip whose frame bucket exceeds the kernel's limit (stubbed to 32
+    here; the card's comes from the kernel) is refused at submit; the clips
+    submitted with it are captioned as the JAX service captions them."""
+    jmodel, jvocab, params, model, vocab = tiny
+    cfg = dict(SERVICE, max_batch=16, frame_buckets=(8, 16, 32, 48))
+    short = _requests(5, 8)
+    with JaxService(jmodel, jax.tree.map(jax.numpy.asarray, params), jvocab,
+                    JaxServiceConfig(**cfg)) as svc:
+        want = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in short]]
+    monkeypatch.setattr(CaptionService, "_kernel_frame_limit", lambda self: 32)
+    long_v, long_a = _requests(6, 1, t_lo=40, t_hi=40)[0]          # bucket 48
+    with CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**cfg),
+                        device="cpu") as svc:
+        assert svc.max_frames == 32
+        futures = [svc.submit(v, a) for v, a in short[:4]]
+        with pytest.raises(ValueError, match="above the 32 frames"):
+            svc.submit(long_v, long_a)
+        futures += [svc.submit(v, a) for v, a in short[4:]]
+        got = [f.result(timeout=300) for f in futures]
+        ok = svc.submit(long_v[:32], long_a[:32]).result(timeout=300)   # bucket 32 fits
+        stats = svc.stats()
+    assert got == want
+    assert isinstance(ok, str)
+    assert stats["requests"] == 9 and 32 in stats["compiled_t_pads"]
+    assert 48 not in stats["compiled_t_pads"]
+
+
+def test_beam_wider_than_the_kernel_fails_construction(tiny, monkeypatch):
+    _, _, params, model, vocab = tiny
+    monkeypatch.setattr(CaptionService, "_kernel_width_limit", lambda self: 2)
+    cfg = dict(SERVICE, mode="beam", beam_width=3)
+    with pytest.raises(ValueError, match="at most 2"):
+        CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**cfg), device="cpu")
+    with CaptionService(model, from_numpy_tree(params), vocab,
+                        ServiceConfig(**dict(cfg, beam_width=2)), device="cpu") as svc:
+        assert svc.max_frames is None                                 # no limit on the CPU
+
+
 def test_cli_beam_flags_reach_the_service(tiny, tmp_path, monkeypatch):
     """``--mode beam --beam_width --beam_alpha`` build a beam service."""
     jmodel, jvocab, params, model, vocab = tiny
