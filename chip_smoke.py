@@ -36,6 +36,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -153,8 +154,9 @@ def largest_t(lib_fn, args, limit):
     return t_max
 
 
-PHASES = ("embed + query", "query cluster barrier", "attention", "gates",
-          "gates cluster barrier", "vocab matvec", "argmax + exchange + barrier")
+PHASES = ("embed + attention of the block's row", "attention cluster barrier", "gates",
+          "gates cluster barrier + h pull", "vocab matvec + block argmax", "next query",
+          "candidate exchange + barrier")
 
 
 def phase_timers(card, label, name, lib, args, dtype, device):
@@ -223,6 +225,46 @@ def compare_sass(build, other_root):
         log(f"SASS of {n}.cu against {other_root}: {len(same)} of {len(old)} kernels of that "
             f"build unchanged here ({len(new)} here); unchanged: {same}; digests here: "
             f"{json.dumps(new)}")
+
+
+# SASS digests (sass_bodies) of beam.cu's four kernels as PR 5 built them
+# (nvcc of CUDA 12.8 for sm_90a, NVCC_FLAGS of ops/_build.py)
+PR5_BEAM_SASS = {
+    "2507bfa0e14d65a7d36dbeb716a5a931fb33c70d7f25207e28658dc16f0f6499",   # float, R=15
+    "5cf6abdac9555cd3047767b2db6363567a45486d6b52fee43b65db9deac78a29",   # float, R=8
+    "18e90ee935aeee77e2680b3991994a3e0ea8928c64d8258ae5f06bcdee5f2915",   # bf16, R=15
+    "066ba7a8ae88fd96b75d496e3f373887b34ddb08ce686c3ed1bef14ae30d34eb",   # bf16, R=8
+}
+
+
+def beam_sass_against_pr5(build):
+    """Whether this build of beam.cu has the SASS of PR 5's (printed; a
+    toolkit other than PR 5's gives other digests)."""
+    try:
+        here = set(sass_bodies(build._library_path("beam")).values())
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"beam.cu SASS against PR 5's build: not compared ({e})")
+        return
+    log(f"beam.cu SASS against PR 5's build: {len(here & PR5_BEAM_SASS)} of "
+        f"{len(PR5_BEAM_SASS)} kernels identical ({len(here)} built)")
+
+
+def stream_layout(card, label, smem_fn, args, prep):
+    """The greedy kernel's shared-memory need against the Python replica of
+    its layout (ops/_decode_common.greedy_layout); fails if they differ."""
+    from mvc_tpu_torch.ops import _decode_common as dc
+
+    decs = [{k: p[k] for k in ("H", "A", "E", "F", "cell", "factored")} for p in prep]
+    lay = dc.greedy_layout(decs, args.T, args.V)
+    got = smem_fn(ctypes.byref(args))
+    log(f"{label} shared memory per block at T={args.T}: {got} bytes (replica {lay['bytes']}), "
+        f"ring of {lay['stages']} stages of {dc.STAGE_BYTES} bytes; largest T at these widths: "
+        f"{largest_t(smem_fn, args, dc.MAX_SMEM_BYTES)}")
+    if got != lay["bytes"]:
+        raise SystemExit(f"{label}: the kernel's layout and its Python replica disagree")
+    nbytes = sum(sum(st) for *_, st in dc.stream_plan(decs, args.V, 4))
+    log(f"[{card}] {label} weight stream per block and step (f32): {nbytes / 1e6:.3f} MB, "
+        f"{nbytes * dc.CL * -(-args.B // dc.ROWS) / 1e6:.1f} MB over the grid")
 
 
 def check_greedy(name, kernel_fn, plain_fn, label, mask, exact):
@@ -376,6 +418,60 @@ def serve(model, params, vocab, device, mode, label=""):
     return singles + [it for b in batches for it in b], captions
 
 
+def serve_over_limit(model, params, vocab, device, plain_fn):
+    """One clip whose frame bucket exceeds the kernel's largest T, posted
+    together with 8 short clips: it alone gets HTTP 400 and the 8 get the
+    plain version's captions."""
+    from mvc_tpu_torch.data.dataset import _bucket
+    from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
+
+    cfg = ServiceConfig(max_batch=64, mode="direct", frame_buckets=BUCKETS, max_caption_len=L,
+                        max_wait_ms=200.0)
+    svc = CaptionService(model, params, vocab, cfg, device=device)
+    t_long = svc.max_frames + 1
+    rng = np.random.default_rng(3)
+    shorts = [{"visual": rng.normal(size=(t, 2048)).astype(np.float32).round(3).tolist(),
+               "audio": rng.normal(size=(t, 128)).astype(np.float32).round(3).tolist()}
+              for t in rng.integers(3, 41, size=8)]
+    bodies = shorts + [{"visual": np.zeros((t_long, 2048)).tolist(),
+                        "audio": np.zeros((t_long, 128)).tolist()}]
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    replies = [None] * len(bodies)
+
+    def post(i):
+        req = urllib.request.Request(base + "/caption", data=json.dumps(bodies[i]).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                replies[i] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            replies[i] = (e.code, None)
+        except Exception as e:               # reported below; the phase fails
+            replies[i] = (None, repr(e))
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        svc.close()
+    codes = [c for c, _ in replies]
+    log(f"[over-limit] kernel's largest T {svc.max_frames}; a clip of T={t_long} (bucket "
+        f"{_bucket(t_long, BUCKETS)}) posted with 8 short ones: HTTP {codes}")
+    if codes != [200] * 8 + [400]:
+        raise SystemExit(f"the over-limit clip was not refused alone: {replies}")
+    check_served(plain_fn, shorts, [r["caption"] for _, r in replies[:8]], vocab, device,
+                 "over-limit batch-mates")
+
+
 def check_served(plain_fn, requests, captions, vocab, device, mode):
     """8 served captions against the plain version on the card, each at its
     own 64-row batch and frame bucket (the kernels are padding-invariant)."""
@@ -485,6 +581,7 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "smem", "entry function")):
                 log(f"  {src}: {line.strip()}")
 
+    beam_sass_against_pr5(_build)
     if "--against" in sys.argv:
         compare_sass(_build, sys.argv[sys.argv.index("--against") + 1])
 
@@ -617,6 +714,8 @@ def main() -> int:
     plain_params = [params["v_decoder"], params["a_decoder"]]
     check_served(lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L),
                  requests, captions, vocab, device, "direct")
+    serve_over_limit(model, params, vocab, device,
+                     lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L))
 
     bm.beam_decode.launches = 0
     requests, captions = serve(model, params, vocab, device, "beam")
@@ -668,9 +767,10 @@ def main() -> int:
         f"at 67 TFLOP/s f32; bytes {g_bytes / 1e6:.1f} MB at 3.35 TB/s): {g_bound:.4f} ms")
     log(f"[{card}] dual_greedy bound (kernel alone, {g_kern / 1e9:.2f} GFLOP): {g_bound_k:.4f} ms")
     lib = dg._library()
-    log(f"dual_greedy shared memory per block at T={T}: "
-        f"{lib.dual_greedy_smem_bytes(ctypes.byref(g_args))} bytes; largest T at these widths: "
-        f"{largest_t(lib.dual_greedy_smem_bytes, g_args, dc.MAX_SMEM_BYTES)}")
+    stream_layout(card, "dual_greedy", lib.dual_greedy_smem_bytes, g_args, g_keep[0])
+    g_repack = cuda_ms(lambda: [dc.stream_operands(p, V) for p in g_keep[0]], 5)
+    log(f"[{card}] dual_greedy weight repack inside the wrapper (f32): {g_repack:.4f} ms")
+    log(f"dual_greedy max_frames at B={B}: {dg.max_frames(decoders, cells, B)}")
     phase_timers(card, "dual_greedy f32", "dual_greedy", lib, g_args, f32, device)
     del g_keep
     bf = torch.bfloat16
@@ -728,10 +828,10 @@ def main() -> int:
             f"at {peak_txt}; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s): {bound:.4f} ms")
         log(f"[{card}] greedy bound {wd} (kernel alone, {kern / 1e9:.2f} GFLOP): {bound_k:.4f} ms")
         if wd == f32:
-            slib = gr._library()
-            log(f"greedy shared memory per block at T={T}: "
-                f"{slib.greedy_smem_bytes(ctypes.byref(s_args))} bytes; largest T at these "
-                f"widths: {largest_t(slib.greedy_smem_bytes, s_args, dc.MAX_SMEM_BYTES)}")
+            stream_layout(card, "greedy", gr._library().greedy_smem_bytes, s_args, s_keep[0])
+            repack = cuda_ms(lambda: [dc.stream_operands(p, V) for p in s_keep[0]], 5)
+            log(f"[{card}] greedy weight repack inside the wrapper (f32): {repack:.4f} ms")
+            log(f"greedy max_frames at B={B}: {gr.max_frames(dec_, 'LSTM', B)}")
         phase_timers(card, f"greedy {wd}", "greedy", gr._library(), s_args, wd, device)
         del s_keep
     s_ms, s_plain, s_bound, s_by = s_times[f32]

@@ -10,22 +10,28 @@
 // the reported token.  Output: int32 [B, max_len], column 0 = 0.  The step
 // loop is greedy_common.cuh's, instantiated for two decoders.
 //
-// What bounds it on this card: operations.  At the serving shape (B=64,
-// T=16, L=30, V=4000, H=512, E=300) one call does ~29.7 GFLOP of float32
-// matrix-vector work on ~41 MB of float32 weights: 0.44 ms at the 67 TFLOP/s
-// float32 (non-tensor-core) peak, against ~0.02 ms to read its bytes once.
-// The weights fit in the 50 MB L2, but every step needs every weight again,
-// so in practice the rate at which SMs can pull weights out of L2 decides.
+// What bounds it on this card: the weights' trip from L2 to the FMAs.  At
+// the serving shape (B=64, T=16, L=30, V=4000, H=512, E=300) one call does
+// ~29.7 GFLOP of float32 matrix-vector work on ~41 MB of float32 weights:
+// 0.44 ms at the 67 TFLOP/s float32 (non-tensor-core) peak, against ~0.02
+// ms to read its bytes once.  The weights fit in the 50 MB L2, but every
+// step needs every weight again: a block streams 4.00 MB of weight slices a
+// step, the 64 blocks of B=64 254 MB.  The loads of the first design waited
+// on L2 one at a time and every phase ended in block barriers (per-phase
+// timers: 219 µs a step, 81 % of it in the matvecs).
 //
-// What the design does about it: rows are independent, so a cluster of CL
+// What the design does about it (greedy_common.cuh): a cluster of CL
 // blocks owns ROWS batch rows and runs all steps of both decoders with no
-// grid-wide sync, with the column split of decode_common.cuh: a step's
-// weights are read once per cluster, spread over CL SMs.  The new hidden
-// state, the query and the argmax candidates are exchanged through
-// distributed shared memory with one cluster barrier each.  The step's
-// logits stay in shared memory (the block's vocab slice) and only argmax
-// candidates leave the block.  wgmma, TMA and asynchronous copies are the
-// next steps (a later change).
+// grid-wide sync; block rank r owns 1/CL of every weight's output columns,
+// repacked by the wrapper into contiguous slices.  A producer warp streams
+// the slices in a fixed order through a ring of shared-memory stages with
+// cp.async.bulk, running ahead of the 16 consumer warps across phases and
+// steps; the consumers read each weight once from shared memory and apply
+// it to the 8 rows in registers.  Rank r attends over row r alone and sends
+// the weights to its peers; the hidden state, the next query and the argmax
+// candidates cross the cluster through distributed shared memory, with
+// three cluster barriers a step.  wgmma (bf16) and more rows per weight load
+// are later changes.
 
 #include "greedy_common.cuh"
 

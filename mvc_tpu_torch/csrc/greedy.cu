@@ -13,22 +13,25 @@
 // 0 = 0.  The step loop is greedy_common.cuh's, instantiated for one
 // decoder, so it shares every line of device code with dual_greedy.cu.
 //
-// What bounds it on this card: operations.  At B=64, T=16, L=30, V=4000,
-// H=512, A=256, E=300, F=2176 (factored) a row-step is ~7.76 MFLOP (vocab
-// 4.10, h-gates 2.10, x-gates 1.23, query 0.26, P-sum 0.07): 14.4 GFLOP in
-// the kernel, 0.215 ms at the 67 TFLOP/s float32 (non-tensor-core) peak,
-// against ~0.015 ms to read the call's ~49 MB of inputs once.  The ~15 MB
-// of float32 weights a step reads (attention W, wi's embedding rows, wh,
-// wout) fit in the 50 MB L2, but every step reads all of them again.
+// What bounds it on this card: the weights' trip from L2 to the FMAs.  At
+// B=64, T=16, L=30, V=4000, H=512, A=256, E=300, F=2176 (factored) a
+// row-step is ~7.76 MFLOP (vocab 4.10, h-gates 2.10, x-gates 1.23, query
+// 0.26, P-sum 0.07): 14.4 GFLOP in the kernel, 0.215 ms at the 67 TFLOP/s
+// float32 (non-tensor-core) peak, against ~0.015 ms to read the call's ~49
+// MB of inputs once.  The ~15 MB of float32 weights a step reads fit in
+// the 50 MB L2, but every step reads them again: 1.93 MB of slices per
+// block, 123 MB over the 64 blocks of B=64.
 //
-// What the design does about it: as dual_greedy.cu.  A cluster of CL=8
-// blocks owns ROWS=8 batch rows for the whole decode; each block streams
-// 1/8 of every weight's output columns (query, gate units, vocab slice)
-// with 16-byte loads feeding 8 rows from registers; h and the query cross
-// the cluster through distributed shared memory; each block reduces its
-// vocab slice to one candidate per row and every block reduces the 8
-// gathered candidates in rank order, so all feed back the same token and
-// rank 0 writes it.  wgmma, TMA and more than 64 SMs are later changes.
+// What the design does about it: as dual_greedy.cu (greedy_common.cuh).
+// A cluster of CL=8 blocks owns ROWS=8 batch rows for the whole decode; a
+// producer warp streams each block's contiguous weight slices (query, gate
+// units, vocab columns) through a shared-memory ring with cp.async.bulk and
+// the consumer warps apply each weight, read once from shared memory, to
+// the 8 rows; rank r attends over row r; h, the query and the argmax
+// candidates cross the cluster through distributed shared memory, and
+// every block reduces the gathered candidates in rank order, so all feed
+// back the same token and rank 0 writes it.  wgmma and more than 64 SMs
+// are later changes.
 
 #include "greedy_common.cuh"
 

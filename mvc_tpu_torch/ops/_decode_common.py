@@ -123,6 +123,176 @@ def _mask_f32(feat_mask, B, T, device):
     return feat_mask.to(torch.float32).contiguous()
 
 
+# ---- the greedy kernels' weight stream (csrc/greedy_common.cuh)
+CL, ROWS, NWARPS = 8, 8, 16      # blocks per cluster, rows per cluster, consumer warps
+STREAM_RB = 16                   # weight rows per row block (RB)
+STAGE_BYTES = 32768              # one ring stage (STAGE_BYTES)
+MIN_STAGES, MAX_STAGES = 2, 6    # the ring's stages, within these bounds
+CHUNK = 512                      # widest column slice of one matvec (CHUNK)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round(x: int, m: int) -> int:
+    return _cdiv(x, m) * m
+
+
+def stream_dims(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int) -> dict:
+    """One decoder's stream dimensions (``greedy_common.cuh: sdims``): own
+    units U, query columns Ac and vocab columns Vc of a block; the padded
+    K of h (Hp) and of the step input (Kxp); the padded slice widths of the
+    query (ncq) and gates (ncg); the vocab slice in nch chunks of cw
+    columns; the resident bias block's width nb."""
+    G = 4 if cell == "LSTM" else 3
+    U, Ac, Vc = _cdiv(H, CL), _cdiv(A, CL), _cdiv(V, CL)
+    nch = _cdiv(Vc, CHUNK)
+    cw = _round(_cdiv(Vc, nch), 8)
+    ncq, ncg, Ap = _round(Ac, 8), _round(G * U, 8), _round(A, 4)
+    return dict(G=G, U=U, Ac=Ac, Vc=Vc, Hp=_round(H, STREAM_RB),
+                Kxp=_round(E if factored else E + F, STREAM_RB), ncq=ncq, ncg=ncg, nch=nch,
+                cw=cw, Ap=Ap, nb=_round(nch * cw + 2 * ncg + 2 * Ap, 4))
+
+
+def k_groups(ncp: int) -> int:
+    """Warp groups that split K for a slice of ncp columns."""
+    return NWARPS // _cdiv(ncp, 32)
+
+
+def stage_rows(Kp: int, ncp: int, weight_bytes: int) -> int:
+    """Weight rows per ring stage of a slice."""
+    return min(Kp, STAGE_BYTES // (ncp * weight_bytes) // STREAM_RB * STREAM_RB)
+
+
+def stream_plan(decoders, V: int, weight_bytes: int):
+    """One step of a block's weight stream, in order (the last step takes no
+    query): (name, K rows, columns, bytes of each stage).  ``decoders``: dicts with H, A, E, F, cell,
+    factored."""
+    dims = [stream_dims(d["H"], d["A"], d["E"], d["F"], d["cell"], d["factored"], V)
+            for d in decoders]
+    segs = []
+    for d, s in enumerate(dims):
+        segs += [(f"wi{d}", s["Kxp"], s["ncg"]), (f"wh{d}", s["Hp"], s["ncg"])]
+    segs += [(f"wout{d}.{c}", s["Hp"], s["cw"]) for c in range(dims[0]["nch"])
+             for d, s in enumerate(dims)]
+    segs += [(f"query{d}", s["Hp"], s["ncq"]) for d, s in enumerate(dims)]
+    plan = []
+    for name, Kp, ncp in segs:
+        rows = stage_rows(Kp, ncp, weight_bytes)
+        plan.append((name, Kp, ncp, [min(rows, Kp - k0) * ncp * weight_bytes
+                                     for k0 in range(0, Kp, rows)]))
+    return plan
+
+
+def greedy_layout(decoders, T: int, V: int) -> dict:
+    """Python replica of ``greedy_common.cuh: layout``: offsets (floats),
+    ring stages and the bytes a block needs (``TOO_LARGE``-like 1 << 40 for
+    shapes the kernel cannot take)."""
+    S = 1 if len(decoders) == 1 else len(decoders) + 1
+    r4 = lambda x: _round(x, 4)
+    o, pq, pg, pv, gru, ok, L = 0, 0, 0, 0, False, True, {}
+    for d, dec in enumerate(decoders):
+        s = stream_dims(dec["H"], dec["A"], dec["E"], dec["F"], dec["cell"], dec["factored"], V)
+        ok = ok and s["ncq"] <= CHUNK and s["ncg"] <= CHUNK
+        for name, size in (("h", ROWS * s["Hp"]), ("hs", ROWS * s["U"]), ("c", ROWS * s["U"]),
+                           ("x", ROWS * s["Kxp"]), ("q", dec["A"]), ("att", ROWS * T),
+                           ("ps", ROWS * s["ncg"] if dec["factored"] else 0)):
+            L[f"{name}{d}"] = o
+            o = r4(o + size)
+        L[f"bias{d}"] = o
+        o += s["nb"]
+        pq = max(pq, k_groups(s["ncq"]) * ROWS * s["ncq"])
+        pg = max(pg, k_groups(s["ncg"]) * ROWS * s["ncg"])
+        pv = r4(k_groups(s["cw"]) * ROWS * s["cw"])
+        gru = gru or dec["cell"] == "GRU"
+    L["part"], L["px"], L["pv"] = o, o + r4(pg), max(pv, r4(pq))
+    o += max(r4(pg) * (2 if gru else 1), len(decoders) * L["pv"])
+    for name, size in (("red_v", NWARPS * S * ROWS), ("red_i", NWARPS * S * ROWS),
+                       ("gather_v", CL * S * ROWS), ("gather_i", CL * S * ROWS),
+                       ("prev", len(decoders) * ROWS), ("bars", 2 * (MAX_STAGES + 1))):
+        L[name] = o
+        o = r4(o + size)
+    L["ring"] = o = _round(o, 32)
+    fixed = 4 * o
+    L["stages"] = min(MAX_STAGES, max(MIN_STAGES, (MAX_SMEM_BYTES - fixed) // STAGE_BYTES
+                                      if fixed < MAX_SMEM_BYTES else 0))
+    L["bytes"] = fixed + L["stages"] * STAGE_BYTES if ok else 1 << 40
+    return L
+
+
+def query_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int):
+    """[CL, ncq]: the attn_W column of each packed query column (-1: padding)."""
+    s = stream_dims(H, A, E, F, cell, factored, V)
+    r, j = torch.arange(CL)[:, None], torch.arange(s["ncq"])[None, :]
+    col = r * s["Ac"] + j
+    return torch.where((j < s["Ac"]) & (col < A), col, -1)
+
+
+def gate_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int):
+    """[CL, ncg]: the wi/wh column (gate g, unit n: g*H + n) of each packed
+    gate column j = g*U + u of rank r (unit n = r*U + u; -1: padding)."""
+    s = stream_dims(H, A, E, F, cell, factored, V)
+    r, j = torch.arange(CL)[:, None], torch.arange(s["ncg"])[None, :]
+    g, u = j // s["U"], j % s["U"]
+    n = r * s["U"] + u
+    return torch.where((j < s["G"] * s["U"]) & (n < H), g * H + n, -1)
+
+
+def vocab_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int):
+    """[CL, nch, cw]: the wout column of each packed vocab column (-1:
+    padding)."""
+    s = stream_dims(H, A, E, F, cell, factored, V)
+    r = torch.arange(CL)[:, None, None]
+    c, j = torch.arange(s["nch"])[None, :, None], torch.arange(s["cw"])[None, None, :]
+    k = c * s["cw"] + j
+    col = r * s["Vc"] + k
+    return torch.where((k < s["Vc"]) & (col < V), col, -1)
+
+
+def pack_columns(W: torch.Tensor, cols: torch.Tensor, Kp: int) -> torch.Tensor:
+    """W [K, N] -> [*cols.shape[:-1], Kp, cols.shape[-1]]: each slice's
+    columns (``cols``, -1 = zero padding) as contiguous rows, K padded with
+    zero rows to Kp."""
+    K, N = W.shape
+    Wz = torch.cat([W, W.new_zeros(K, 1)], dim=1)
+    idx = torch.where(cols < 0, N, cols).to(W.device)
+    out = Wz[:, idx.reshape(-1)].reshape(K, *cols.shape).movedim(0, -2)
+    return torch.nn.functional.pad(out, (0, 0, 0, Kp - K)).contiguous()
+
+
+def _take(v: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    vz = torch.cat([v, v.new_zeros(1)])
+    return vz[torch.where(cols < 0, v.shape[0], cols).to(v.device)]
+
+
+def stream_operands(p: dict, V: int) -> dict:
+    """The weight stream's operands of one prepared decoder (``_prepare``):
+    attn_W, wi's step-input rows, wh and wout repacked so that each rank's
+    columns are contiguous, and each rank's resident bias block: its b_out,
+    b_gates and b_h columns, then attn_b and w_row whole."""
+    dims = (p["H"], p["A"], p["E"], p["F"], p["cell"], p["factored"], V)
+    s = stream_dims(*dims)
+    qc, gc, vc = query_columns(*dims), gate_columns(*dims), vocab_columns(*dims)
+    Kx = p["E"] if p["factored"] else p["E"] + p["F"]
+    bias = torch.cat([
+        _take(p["b_out"], vc.reshape(CL, -1)), _take(p["b_gates"], gc), _take(p["b_h"], gc),
+        *(torch.nn.functional.pad(p[k], (0, s["Ap"] - p["A"])).expand(CL, -1)
+          for k in ("attn_b", "w_row"))], dim=1)
+    return dict(
+        q=pack_columns(p["attn_W"], qc, s["Hp"]),
+        wi=pack_columns(p["wi"][:Kx], gc, s["Kxp"]),
+        wh=pack_columns(p["wh"], gc, s["Hp"]),
+        wout=pack_columns(p["wout"], vc, s["Hp"]),
+        bias=torch.nn.functional.pad(bias, (0, s["nb"] - bias.shape[1])).contiguous())
+
+
+class StreamArgs(ctypes.Structure):
+    """``struct StreamArgs`` of ``csrc/greedy_common.cuh``."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in ("q", "wi", "wh", "wout", "bias")]
+
+
 class DecoderArgs(ctypes.Structure):
     """``struct DecoderArgs`` of ``csrc/decode_common.cuh``."""
 
@@ -270,20 +440,24 @@ def greedy_kernel_call(args_type, decoder_params, feats_list, feat_mask, max_cap
     B, T, V = check_greedy(decoder_params, feats_list, feat_mask, max_caption_len,
                            weight_dtype, rnn_types, n_decoders)
     prep = _prepare(decoder_params, feats_list, weight_dtype, rnn_types)
+    streams = [stream_operands(p, V) for p in prep]
     mask = _mask_f32(feat_mask, B, T, device)
     tokens = torch.empty((B, int(max_caption_len)), dtype=torch.int32, device=device)
     args = args_type()
-    for d, p in enumerate(prep):
+    for d, (p, st) in enumerate(zip(prep, streams)):
         fill_decoder_args(args.dec[d], p)
+        for name, t in st.items():
+            setattr(args.st[d], name, t.data_ptr())
     args.mask, args.tokens = mask.data_ptr(), tokens.data_ptr()
     args.B, args.T, args.max_len, args.V, args.sos_id = B, T, int(max_caption_len), V, sos_id
-    return args, tokens, (prep, mask)
+    return args, tokens, (prep, streams, mask)
 
 
 def greedy_args_type(n_decoders: int):
     """``struct GreedyArgsT<n_decoders>`` of ``csrc/greedy_common.cuh``."""
     return type(f"GreedyArgs{n_decoders}", (ctypes.Structure,), {"_fields_": [
-        ("dec", DecoderArgs * n_decoders), ("mask", ctypes.c_void_p),
+        ("dec", DecoderArgs * n_decoders), ("st", StreamArgs * n_decoders),
+        ("mask", ctypes.c_void_p),
         ("tokens", ctypes.c_void_p)] + [
         (n, ctypes.c_int) for n in ("B", "T", "max_len", "V", "sos_id")]})
 

@@ -145,3 +145,48 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         dual_greedy_decode(params, [feats[0], feats[1][:, :2]])
     with pytest.raises(ValueError):
         dual_greedy_decode(params, feats, rnn_types=("GRU", "LSTM"))   # wi width is 4H
+
+
+def test_stream_constants_and_layout_match_the_kernel():
+    """The Python replica of the greedy kernels' weight stream and
+    shared-memory layout (``_decode_common.stream_plan``, ``greedy_layout``)
+    uses the constants ``csrc/greedy_common.cuh`` declares and lays out its
+    regions in the source's order; at the serving widths every stage is
+    one 16-byte-multiple bulk copy within a ring stage, the stages of a
+    segment cover its rows, and both kernels take T >= 256."""
+    import re
+    from pathlib import Path
+
+    from mvc_tpu_torch.ops import _decode_common as dc
+
+    csrc = Path(dc.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "greedy_common.cuh").read_text()
+    common = (csrc / "decode_common.cuh").read_text()
+
+    def const(text, name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);", text).group(1))
+
+    assert (const(src, "RB"), const(src, "STAGE_BYTES"), const(src, "CHUNK")) == (
+        dc.STREAM_RB, dc.STAGE_BYTES, dc.CHUNK)
+    assert (const(src, "MIN_STAGES"), const(src, "MAX_STAGES")) == (dc.MIN_STAGES, dc.MAX_STAGES)
+    assert (const(src, "N_MARKS"), const(src, "TIMER_HEAD")) == (dc.N_MARKS, dc.TIMER_HEAD)
+    assert (const(common, "CL"), const(common, "ROWS"), const(common, "NT")) == (
+        dc.CL, dc.ROWS, 32 * dc.NWARPS)
+    regions = re.findall(r"\bL\.(\w+)(?:\[d\])? = o[;+ ]", src)
+    replica = dc.greedy_layout([dict(H=16, A=8, E=8, F=24, cell="GRU", factored=True)], 4, V)
+    order = list(dict.fromkeys(re.sub(r"\d+$", "", k) for k in replica))
+    assert regions == [k for k in order if k not in ("pv", "stages", "bytes")]
+
+    vis = dict(H=512, A=256, E=300, F=2048, cell="LSTM", factored=True)
+    aud = dict(H=512, A=256, E=300, F=128, cell="LSTM", factored=False)
+    one = dict(vis, F=2176)
+    for decs in ([vis, aud], [one], [dict(vis, cell="GRU"), aud]):
+        for wb in (4, 2):
+            for name, Kp, ncp, stages in dc.stream_plan(decs, 4000, wb):
+                assert all(0 < b <= dc.STAGE_BYTES and b % 16 == 0 for b in stages), name
+                assert sum(stages) == Kp * ncp * wb, name
+        lay = dc.greedy_layout(decs, 16, 4000)
+        assert lay["bytes"] <= dc.MAX_SMEM_BYTES and lay["stages"] >= 3
+        assert dc.greedy_layout(decs, 256, 4000)["bytes"] <= dc.MAX_SMEM_BYTES
+    dual_bytes = sum(sum(st) for *_, st in dc.stream_plan([vis, aud], 4000, 4))
+    assert round(dual_bytes / 1e6, 2) == 4.00                       # per block and step

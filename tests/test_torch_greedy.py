@@ -202,3 +202,59 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         greedy_decode(params, f, rnn_type="GRU")                    # wi width is 4H
     with pytest.raises(ValueError):
         greedy_decode(params, f, rnn_type="RNN")
+
+
+def _unpack(packed, cols, K, N):
+    """The [K, N] matrix whose columns a repacked stream operand holds:
+    each of ``cols``' valid entries once, padding columns and rows zero."""
+    vals = packed[..., :K, :].movedim(-2, 0).reshape(K, -1)
+    flat = cols.reshape(-1)
+    valid = flat >= 0
+    assert sorted(flat[valid].tolist()) == list(range(N))           # a permutation
+    assert not vals[:, ~valid].any() and not packed[..., K:, :].any()
+    out = torch.zeros((K, N), dtype=packed.dtype)
+    out[:, flat[valid]] = vals[:, valid]
+    return out
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("vocab", [V, 8 * 1025 + 3], ids=["v29", "v8203-three-chunks"])
+@pytest.mark.parametrize("branch,cell", CASES, ids=IDS)
+def test_stream_repack_is_a_permutation(branch, cell, vocab, wd):
+    """The greedy kernels' weight stream (``stream_operands``): each rank's
+    slices, unpacked, give back attn_W, wi's step-input rows, wh and wout
+    exactly, and the bias block the biases, for a V that CL does not
+    divide (29) and one whose vocab slice takes three chunks."""
+    from mvc_tpu_torch.ops import _decode_common as dc
+
+    _, p, feats, _ = _case(branch, cell)
+    (prep,) = dc._prepare([from_numpy_tree(p)], [torch.from_numpy(feats)], wd, (cell,))
+    assert prep["factored"] == (branch == "factored")
+    H, A, E, F = prep["H"], prep["A"], prep["E"], prep["F"]
+    g = torch.Generator().manual_seed(1)
+    prep["wout"] = torch.randn(H, vocab, generator=g).to(wd)
+    prep["b_out"] = torch.randn(vocab, generator=g)
+    dims = (H, A, E, F, cell, prep["factored"], vocab)
+    s = dc.stream_dims(*dims)
+    st = dc.stream_operands(prep, vocab)
+    qc, gc, vc = dc.query_columns(*dims), dc.gate_columns(*dims), dc.vocab_columns(*dims)
+    Kx = E if prep["factored"] else E + F
+    assert st["q"].shape == (dc.CL, s["Hp"], s["ncq"]) and st["wi"].shape == (dc.CL, s["Kxp"], s["ncg"])
+    assert st["wout"].shape == (dc.CL, s["nch"], s["Hp"], s["cw"]) and s["nch"] == (1 if vocab == V else 3)
+    assert all(t.dtype == wd and t.is_contiguous() for k, t in st.items() if k != "bias")
+    assert torch.equal(_unpack(st["q"], qc, H, A), prep["attn_W"])
+    assert torch.equal(_unpack(st["wi"], gc, Kx, s["G"] * H), prep["wi"][:Kx])
+    assert torch.equal(_unpack(st["wh"], gc, H, s["G"] * H), prep["wh"])
+    assert torch.equal(_unpack(st["wout"], vc, H, vocab), prep["wout"])
+    bias = st["bias"]
+    assert bias.shape == (dc.CL, s["nb"]) and bias.dtype == torch.float32
+    o = 0
+    for name, cols in (("b_out", vc.reshape(dc.CL, -1)), ("b_gates", gc), ("b_h", gc)):
+        n = cols.shape[1]
+        assert torch.equal(_unpack(bias[:, None, o:o + n], cols, 1, prep[name].shape[0])[0],
+                           prep[name])
+        o += n
+    for name in ("attn_b", "w_row"):                                # whole, in every slice
+        assert torch.equal(bias[:, o:o + A], prep[name].expand(dc.CL, -1))
+        assert not bias[:, o + A:o + s["Ap"]].any()
+        o += s["Ap"]
