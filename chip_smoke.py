@@ -8,7 +8,8 @@ its own failure:
 
 1. the card: its name, and ``nvidia-smi``'s name and power limit
 2. build every CUDA source of ``mvc_tpu_torch/csrc`` with nvcc for sm_90a,
-   one nvcc per source, all started together
+   one nvcc per source, all started together; ``beam.cu``'s SASS against
+   PR 5's build (printed)
 3. each kernel against its plain PyTorch version on the card, at the
    serving shape (B=64, T=16, max_len=30, V=4000, full widths; beam W=5):
    the dual model's two decoders (``dual_greedy.cu``, ``beam.cu``) and the
@@ -20,9 +21,14 @@ its own failure:
    seeded random weights, ``CaptionService(max_batch=64)`` behind
    ``make_http_server``, a few dozen requests through ``POST /caption`` and
    ``/caption_batch``, once in direct mode and once in beam mode; each
-   kernel's launch count is set to 0 just before its run and read just after
+   kernel's launch count is set to 0 just before its run and read just after.
+   Then one dual-direct clip above the kernel's largest T, posted with 8
+   short ones: one HTTP 400, 8 captions equal to the plain version's
 5. times with CUDA events (warm-up excluded): kernel, plain version, bound;
-   ``beam.cu`` per tile: shared memory, largest T, clusters, waves, times
+   the greedy kernels' shared memory against the Python replica of their
+   layout, largest T, weight repack time and per-phase µs per step (f32
+   and bf16); ``beam.cu`` per tile: shared memory, largest T, clusters,
+   waves, times
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -200,31 +206,6 @@ def sass_bodies(lib_path):
         elif name is not None and line.strip():
             body.append(line.strip())
     return out
-
-
-def compare_sass(build, other_root):
-    """Each kernel of ``other_root``'s CUDA sources (another checkout), built
-    with the same nvcc flags, against this checkout's build: the kernels of
-    the other build whose SASS appears unchanged in this one."""
-    from pathlib import Path
-
-    other = Path(other_root).resolve() / "mvc_tpu_torch" / "csrc"
-    out_dir = build.BUILD_DIR / "against"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {n: subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(other), "-o",
-                                  str(out_dir / f"lib{n}.so"), str(other / f"{n}.cu")],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for n in build.KERNELS if (other / f"{n}.cu").exists()}
-    for n, proc in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {other}/{n}.cu:\n{text}")
-        old = sass_bodies(out_dir / f"lib{n}.so")
-        new = sass_bodies(build._library_path(n))
-        same = sorted(k for k, v in old.items() if v in new.values())
-        log(f"SASS of {n}.cu against {other_root}: {len(same)} of {len(old)} kernels of that "
-            f"build unchanged here ({len(new)} here); unchanged: {same}; digests here: "
-            f"{json.dumps(new)}")
 
 
 # SASS digests (sass_bodies) of beam.cu's four kernels as PR 5 built them
@@ -582,8 +563,6 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     beam_sass_against_pr5(_build)
-    if "--against" in sys.argv:
-        compare_sass(_build, sys.argv[sys.argv.index("--against") + 1])
 
     # -- 3. kernels vs plain at full width
     model = AVCaptioningDual(vocab_size=V, device=device)

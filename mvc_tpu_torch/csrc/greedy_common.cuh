@@ -665,7 +665,7 @@ greedy_kernel(const GreedyArgsT<ND> args, long long* timer) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int B = args.B, T = args.T, V = args.V;
+  const int B = args.B, V = args.V;
   const int row0 = (blockIdx.x / CL) * ROWS;
   const Layout<ND> Lo = layout(args);
   const Bars bars{smem_addr(sm + Lo.bars)};

@@ -15,6 +15,7 @@ dtype (``mvc_tpu/ops/pallas_dual_greedy.py:369-416``,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List
 
 import torch
@@ -221,30 +222,34 @@ def greedy_layout(decoders, T: int, V: int) -> dict:
     return L
 
 
-def query_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int):
+def query_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int,
+                  device="cpu"):
     """[CL, ncq]: the attn_W column of each packed query column (-1: padding)."""
     s = stream_dims(H, A, E, F, cell, factored, V)
-    r, j = torch.arange(CL)[:, None], torch.arange(s["ncq"])[None, :]
+    r, j = torch.arange(CL, device=device)[:, None], torch.arange(s["ncq"], device=device)[None, :]
     col = r * s["Ac"] + j
     return torch.where((j < s["Ac"]) & (col < A), col, -1)
 
 
-def gate_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int):
+def gate_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int,
+                 device="cpu"):
     """[CL, ncg]: the wi/wh column (gate g, unit n: g*H + n) of each packed
     gate column j = g*U + u of rank r (unit n = r*U + u; -1: padding)."""
     s = stream_dims(H, A, E, F, cell, factored, V)
-    r, j = torch.arange(CL)[:, None], torch.arange(s["ncg"])[None, :]
+    r, j = torch.arange(CL, device=device)[:, None], torch.arange(s["ncg"], device=device)[None, :]
     g, u = j // s["U"], j % s["U"]
     n = r * s["U"] + u
     return torch.where((j < s["G"] * s["U"]) & (n < H), g * H + n, -1)
 
 
-def vocab_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int):
+def vocab_columns(H: int, A: int, E: int, F: int, cell: str, factored: bool, V: int,
+                  device="cpu"):
     """[CL, nch, cw]: the wout column of each packed vocab column (-1:
     padding)."""
     s = stream_dims(H, A, E, F, cell, factored, V)
-    r = torch.arange(CL)[:, None, None]
-    c, j = torch.arange(s["nch"])[None, :, None], torch.arange(s["cw"])[None, None, :]
+    r = torch.arange(CL, device=device)[:, None, None]
+    c = torch.arange(s["nch"], device=device)[None, :, None]
+    j = torch.arange(s["cw"], device=device)[None, None, :]
     k = c * s["cw"] + j
     col = r * s["Vc"] + k
     return torch.where((k < s["Vc"]) & (col < V), col, -1)
@@ -256,35 +261,67 @@ def pack_columns(W: torch.Tensor, cols: torch.Tensor, Kp: int) -> torch.Tensor:
     zero rows to Kp."""
     K, N = W.shape
     Wz = torch.cat([W, W.new_zeros(K, 1)], dim=1)
-    idx = torch.where(cols < 0, N, cols).to(W.device)
-    out = Wz[:, idx.reshape(-1)].reshape(K, *cols.shape).movedim(0, -2)
+    out = Wz[:, torch.where(cols < 0, N, cols).reshape(-1)].reshape(K, *cols.shape).movedim(0, -2)
     return torch.nn.functional.pad(out, (0, 0, 0, Kp - K)).contiguous()
 
 
-def _take(v: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    vz = torch.cat([v, v.new_zeros(1)])
-    return vz[torch.where(cols < 0, v.shape[0], cols).to(v.device)]
+def _pad_slices(Wv: torch.Tensor, Kp: int, ncp: int) -> torch.Tensor:
+    """A [..., K, n] view of the slices -> contiguous [..., Kp, ncp], zero
+    padded: one copy."""
+    pad = (0, ncp - Wv.shape[-1], 0, Kp - Wv.shape[-2])
+    return (torch.nn.functional.pad(Wv, pad) if any(pad) else Wv).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _stream_columns(dims: tuple, V: int, device: torch.device):
+    """The column maps of a decoder's slices on ``device`` (constant for its
+    dims): query, gates, vocab, and the gather indices of b_out and of
+    b_gates / b_h, where padding takes the index one past the end."""
+    qc, gc, vc = (f(*dims, V, device=device) for f in (query_columns, gate_columns, vocab_columns))
+    G, H = (4 if dims[4] == "LSTM" else 3), dims[0]
+    return (qc, gc, vc, torch.where(vc < 0, V, vc).reshape(CL, -1),
+            torch.where(gc < 0, G * H, gc))
+
+
+def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.cat([v, v.new_zeros(1)])[idx]
 
 
 def stream_operands(p: dict, V: int) -> dict:
     """The weight stream's operands of one prepared decoder (``_prepare``):
     attn_W, wi's step-input rows, wh and wout repacked so that each rank's
     columns are contiguous, and each rank's resident bias block: its b_out,
-    b_gates and b_h columns, then attn_b and w_row whole."""
-    dims = (p["H"], p["A"], p["E"], p["F"], p["cell"], p["factored"], V)
-    s = stream_dims(*dims)
-    qc, gc, vc = query_columns(*dims), gate_columns(*dims), vocab_columns(*dims)
+    b_gates and b_h columns, then attn_b and w_row whole.  Where CL divides
+    the columns evenly a slice is a strided view of the weight, copied once
+    with its padding; otherwise the columns are gathered by index."""
+    dims = (p["H"], p["A"], p["E"], p["F"], p["cell"], p["factored"])
+    s = stream_dims(*dims, V)
+    qc, gc, vc, out_idx, gate_idx = _stream_columns(dims, V, p["wout"].device)
+    H, A, G, U = p["H"], p["A"], s["G"], s["U"]
     Kx = p["E"] if p["factored"] else p["E"] + p["F"]
+    wi = p["wi"][:Kx]
+    if A == CL * s["Ac"]:
+        q = _pad_slices(p["attn_W"].view(H, CL, s["Ac"]).permute(1, 0, 2), s["Hp"], s["ncq"])
+    else:
+        q = pack_columns(p["attn_W"], qc, s["Hp"])
+    if H == CL * U:
+        def gates(W, Kp):
+            K = W.shape[0]
+            return _pad_slices(W.view(K, G, CL, U).permute(2, 0, 1, 3).reshape(CL, K, G * U),
+                               Kp, s["ncg"])
+    else:
+        def gates(W, Kp):
+            return pack_columns(W, gc, Kp)
+    if V == CL * s["Vc"] and s["nch"] == 1:
+        wout = _pad_slices(p["wout"].view(H, CL, 1, s["Vc"]).permute(1, 2, 0, 3), s["Hp"], s["cw"])
+    else:
+        wout = pack_columns(p["wout"], vc, s["Hp"])
     bias = torch.cat([
-        _take(p["b_out"], vc.reshape(CL, -1)), _take(p["b_gates"], gc), _take(p["b_h"], gc),
-        *(torch.nn.functional.pad(p[k], (0, s["Ap"] - p["A"])).expand(CL, -1)
+        _take(p["b_out"], out_idx), _take(p["b_gates"], gate_idx), _take(p["b_h"], gate_idx),
+        *(torch.nn.functional.pad(p[k], (0, s["Ap"] - A)).expand(CL, -1)
           for k in ("attn_b", "w_row"))], dim=1)
-    return dict(
-        q=pack_columns(p["attn_W"], qc, s["Hp"]),
-        wi=pack_columns(p["wi"][:Kx], gc, s["Kxp"]),
-        wh=pack_columns(p["wh"], gc, s["Hp"]),
-        wout=pack_columns(p["wout"], vc, s["Hp"]),
-        bias=torch.nn.functional.pad(bias, (0, s["nb"] - bias.shape[1])).contiguous())
+    return dict(q=q, wi=gates(wi, s["Kxp"]), wh=gates(p["wh"], s["Hp"]), wout=wout,
+                bias=torch.nn.functional.pad(bias, (0, s["nb"] - bias.shape[1])).contiguous())
 
 
 class StreamArgs(ctypes.Structure):

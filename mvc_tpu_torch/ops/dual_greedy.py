@@ -94,7 +94,7 @@ def dual_greedy_decode(
     time); CPU tensors take the plain version.  Anything the kernel cannot
     take raises, including a clip longer than the shared memory of a block
     holds: at the serving widths (H=512, A=256, V=4000) the kernel takes
-    T <= 602 frames and raises ValueError above (the plain version has no
+    T <= 663 frames and raises ValueError above (the plain version has no
     limit)."""
     device = feats_list[0].device
     if device.type == "cpu":

@@ -106,7 +106,7 @@ def greedy_decode(
     launches, from one thread at a time); CPU tensors take the plain
     version.  Anything the kernel cannot take raises, including a clip
     longer than the shared memory of a block holds: at the single model's
-    widths (F=2176, H=512, A=256, V=4000) the kernel takes T <= 3288 frames
+    widths (F=2176, H=512, A=256, V=4000) the kernel takes T <= 3230 frames
     and raises ValueError above (the plain version has no limit)."""
     if feats.device.type == "cpu":
         return greedy_decode_reference(decoder_params, feats, feat_mask, max_caption_len,

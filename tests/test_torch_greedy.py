@@ -218,13 +218,15 @@ def _unpack(packed, cols, K, N):
 
 
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("vocab", [V, 8 * 1025 + 3], ids=["v29", "v8203-three-chunks"])
+@pytest.mark.parametrize("vocab", [V, 8 * 1025 + 3, 8 * 500],
+                         ids=["v29", "v8203-three-chunks", "v4000-strided-view"])
 @pytest.mark.parametrize("branch,cell", CASES, ids=IDS)
 def test_stream_repack_is_a_permutation(branch, cell, vocab, wd):
     """The greedy kernels' weight stream (``stream_operands``): each rank's
     slices, unpacked, give back attn_W, wi's step-input rows, wh and wout
     exactly, and the bias block the biases, for a V that CL does not
-    divide (29) and one whose vocab slice takes three chunks."""
+    divide (29), one whose vocab slice takes three chunks, and one taken
+    as a strided view (CL divides every width: H, A and V = 4000)."""
     from mvc_tpu_torch.ops import _decode_common as dc
 
     _, p, feats, _ = _case(branch, cell)
@@ -240,7 +242,8 @@ def test_stream_repack_is_a_permutation(branch, cell, vocab, wd):
     qc, gc, vc = dc.query_columns(*dims), dc.gate_columns(*dims), dc.vocab_columns(*dims)
     Kx = E if prep["factored"] else E + F
     assert st["q"].shape == (dc.CL, s["Hp"], s["ncq"]) and st["wi"].shape == (dc.CL, s["Kxp"], s["ncg"])
-    assert st["wout"].shape == (dc.CL, s["nch"], s["Hp"], s["cw"]) and s["nch"] == (1 if vocab == V else 3)
+    assert st["wout"].shape == (dc.CL, s["nch"], s["Hp"], s["cw"])
+    assert s["nch"] == (3 if vocab == 8 * 1025 + 3 else 1)
     assert all(t.dtype == wd and t.is_contiguous() for k, t in st.items() if k != "bias")
     assert torch.equal(_unpack(st["q"], qc, H, A), prep["attn_W"])
     assert torch.equal(_unpack(st["wi"], gc, Kx, s["G"] * H), prep["wi"][:Kx])
