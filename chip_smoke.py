@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -29,6 +29,13 @@ its own failure:
    layout, largest T, weight repack time and per-phase µs per step (f32
    and bf16); ``beam.cu`` per tile: shared memory, largest T, clusters,
    waves, times
+6. training at full width (``AVCaptioningDual`` with global
+   reconstructors, V=4000, B=128, f32 without TF32) on a synthetic MSVD
+   tree written under ``build/``: one train step card vs CPU; a 2-epoch
+   ``Trainer.fit`` whose evals decode through ``dual_greedy.cu`` and a
+   1-epoch one through ``beam.cu`` (each count covers its fit; the eval
+   captions held against the plain version's decode of the trained
+   params); the host data side alone; the train step's time and parts
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -531,6 +538,395 @@ def beam_tiles(bm, dc, card, decoders, feats, mask, cells, s_dec, sf, device):
         del keep
 
 
+# -- 6. training ----------------------------------------------------------
+
+TRAIN_B = 128                       # TrainerConfig's batch size, also the eval batch
+TRAIN_ROOT = "build/chip_smoke_train"
+
+
+def write_synthetic_msvd(root, n_train=512, n_val=128, seed=0):
+    """An MSVD-shaped tree at ``root/MSVD``: ``n_train`` train and ``n_val``
+    val clips of 20..40 frames (video [T, 2048], audio [T, 128] float32),
+    each with two captions of 8..14 words drawn (Zipf-like) from a seeded
+    list of V-4 pseudo-words; ``tiny.csv`` holds the first 128 train clips'
+    rows; the vocabulary has exactly V entries.  Returns (dataset dir,
+    vocab path)."""
+    import csv
+    import os
+
+    from mvc_tpu_torch.data import Vocabulary
+
+    rng = np.random.default_rng(seed)
+    ds = os.path.join(root, "MSVD")
+    for sub in ("metadata", "features/video", "features/audio"):
+        os.makedirs(os.path.join(ds, sub), exist_ok=True)
+    syllables = [c + v for c in "bcdfghjklmnprstvwxyz" for v in "aeiou"]
+    words = [syllables[i // 100] + syllables[i % 100] for i in rng.permutation(10_000)[:V - 4]]
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    rows = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        rows[split] = []
+        for c in range(n):
+            vid, t = f"{split}{c:04d}", int(rng.integers(20, 41))
+            for kind, width in (("video", 2048), ("audio", 128)):
+                np.save(os.path.join(ds, "features", kind, f"{vid}_0_10.npy"),
+                        rng.standard_normal((t, width), dtype=np.float32))
+            for _ in range(2):
+                cap = " ".join(words[i] for i in rng.choice(len(words), int(rng.integers(8, 15)),
+                                                             p=p))
+                rows[split].append({"VideoID": vid, "Start": 0, "End": 10, "Source": "clean",
+                                    "Description": cap})
+    rows["tiny"] = rows["train"][:2 * 128]
+    for split, rs in rows.items():
+        with open(os.path.join(ds, "metadata", f"{split}.csv"), "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rs[0]))
+            w.writeheader()
+            w.writerows(rs)
+    vocab_path = os.path.join(ds, "metadata", "vocab.json")
+    vocab = Vocabulary.prebuild([" ".join(words)] + [r["Description"] for r in rows["train"]],
+                                vocab_path, freq_threshold=1)
+    if len(vocab) != V:
+        raise SystemExit(f"the synthetic vocabulary has {len(vocab)} entries, not {V}")
+    return ds, vocab_path
+
+
+class RecordingWriter:
+    """A summary writer that keeps every scalar: {tag: [values]}."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.setdefault(tag, []).append(float(value))
+
+    def close(self):
+        pass
+
+
+def smoke_trainer(checkpoint_name):
+    """A ``Trainer`` whose scalars are recorded and which keeps each eval's
+    generated captions: ``generated[phase, epoch] = {video: [caption]}``."""
+    from mvc_tpu_torch.training.trainer import Trainer
+
+    class SmokeTrainer(Trainer):
+        def eval(self, model, params, loader, phase, epoch, *a, **k):
+            out = super().eval(model, params, loader, phase, epoch, *a, **k)
+            self.generated[phase, epoch] = out[2]
+            return out
+
+    tr = SmokeTrainer(checkpoint_name, log_dir=None, eval_freq=1)
+    tr.summary_writer = RecordingWriter()
+    tr.generated = {}
+    return tr
+
+
+def dual_model(device):
+    from mvc_tpu_torch.models import AVCaptioningDual
+
+    model = AVCaptioningDual(vocab_size=V, teacher_forcing_ratio=1.0, reconstructor_type="global",
+                             device=device)
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in named_leaves(tree[k], f"{prefix}{k}/")]
+    return [] if tree is None else [(prefix[:-1], tree)]
+
+
+def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
+    """(a) one train step from the same weights and batch on the card and
+    on the CPU: the loss within 1e-4 relative and every parameter leaf
+    within 1e-3 of its largest value (max |card - cpu| / max |cpu|)."""
+    from mvc_tpu_torch.data.dataset import VideoCaptioningDataset
+    from mvc_tpu_torch.data.loader import DataLoader
+    from mvc_tpu_torch.training import optimizer as opt_lib
+
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    batch = next(iter(DataLoader(data, batch_size=TRAIN_B, prefetch=0)))
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        model, params = dual_model(dev)
+        tr = smoke_trainer("unused.ckpt")
+        tr._transfer_dtype = torch.bfloat16          # fit's default transfer dtype
+        step, _ = tr._build_train_step(model, cfg)
+        opt = opt_lib.make_optimizer(cfg, params)
+        b = tr._put_batch(batch, dev)
+        b.pop("_n_real")
+        t0 = time.perf_counter()
+        params, metrics = step(params, opt, b, torch.Generator().manual_seed(1))
+        metrics = metrics.cpu()
+        out[dev.type] = (metrics, {k: v.detach().cpu() for k, v in named_leaves(params)},
+                         time.perf_counter() - t0)
+    (m_c, p_c, s_c), (m_h, p_h, s_h) = out["cuda"], out["cpu"]
+    loss_rel = abs(float(m_c[0]) - float(m_h[0])) / abs(float(m_h[0]))
+    rel = {k: float((p_c[k] - p_h[k]).abs().max() / p_h[k].abs().max().clamp_min(1e-30))
+           for k in p_h}
+    worst = max(rel, key=rel.get)
+    log(f"[train a] one train step, same weights and batch (B={TRAIN_B}, T="
+        f"{batch['visual'].shape[1]}, L={batch['captions'].shape[0]}): card losses "
+        f"{[round(float(x), 6) for x in m_c]} ({s_c:.2f} s with warm-up), cpu "
+        f"{[round(float(x), 6) for x in m_h]} ({s_h:.2f} s); loss relative difference "
+        f"{loss_rel:.3e}; max relative parameter difference {rel[worst]:.3e} ({worst})")
+    if not (loss_rel <= 1e-4 and rel[worst] <= 1e-3):
+        raise SystemExit("the card's train step disagrees with the CPU's")
+
+
+def eval_agreement(tr, model, loader, vocab, generated, plain_fn, label, least):
+    """Share of the eval's captions (kernel) equal to the plain version's
+    decode of the same params and the same (transfer-cast) features; fails
+    below ``least``.  The fits' weights have no spread biases, so a near-tie
+    can flip one pick (and the rest of that caption); the first differing
+    pairs are printed."""
+    from mvc_tpu_torch.models.captioning import captions_from_tokens
+
+    equal = total = 0
+    differ = []
+    with torch.no_grad():
+        for batch in loader:
+            b = tr._put_batch(batch, model.device)
+            caps = captions_from_tokens(vocab, plain_fn(b))
+            for vid, cap in zip(batch["video_ids"], caps):
+                same = generated[vid][0] == cap
+                equal += same
+                total += 1
+                if not same and len(differ) < 3:
+                    differ.append((vid, generated[vid][0], cap))
+    share = equal / total
+    log(f"[train {label}] eval captions equal to the plain version's decode of the same "
+        f"params: {equal}/{total} ({100 * share:.2f} %); differing (video, kernel, plain): "
+        f"{differ}")
+    if share < least:
+        raise SystemExit(f"{label}: the kernel's eval captions agree on {share:.4f} < {least}")
+
+
+def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least, device):
+    """``Trainer.fit`` on the card; the kernel's launch count covers exactly
+    the fit.  Checks finite losses, CIDEr in every score, the checkpoint
+    files and the eval captions against the plain version (at least
+    ``least`` equal); returns the launch count."""
+    import os
+
+    from mvc_tpu_torch.data import get_loader
+    from mvc_tpu_torch.data.dataset import video_dataset_to_video_captions_loader
+
+    kw = dict(batch_size=TRAIN_B, vocab_path=vocab_path, verbose=False)
+    train_loader, _ = get_loader(ds, "MSVD", split, **kw)
+    val_loader, _ = get_loader(ds, "MSVD", "val", **kw)
+    model, params = dual_model(device)
+    ckpt = os.path.join(TRAIN_ROOT, "ckpt", f"{label}.ckpt")
+    tr = smoke_trainer(ckpt)
+    counter.launches = 0
+    t0 = time.perf_counter()
+    params, _opt, hist = tr.fit(model, params, train_loader, val_loader, val_loader, cfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = counter.launches
+    sc = tr.summary_writer.scalars
+    for e in range(cfg.epochs):
+        log(f"[{card}] [train {label}] epoch {e + 1}: train {hist['train_loss'][e]} val "
+            f"{hist['val_loss'][e]}; {len(train_loader.dataset)} samples at "
+            f"{sc['train_epoch/samples_per_sec'][e]:.2f} samples/s; eval captions/s train "
+            f"{sc['train/captions_per_sec'][e]:.2f} val {sc['val/captions_per_sec'][e]:.2f}; "
+            f"val CIDEr {hist['val_score'][e]['CIDEr']:.6f}")
+    log(f"[{card}] [train {label}] fit of {cfg.epochs} epoch(s) in {fit_s:.2f} s; kernel "
+        f"launches during the fit: {launches}")
+    losses = [v for key in ("train_loss", "val_loss") for d in hist[key] for v in d.values()]
+    if not all(np.isfinite(losses)) or len(hist["val_score"]) != cfg.epochs:
+        raise SystemExit(f"{label}: a loss is not finite or an eval is missing")
+    if not all("CIDEr" in s for s in hist["val_score"] + hist["train_score"]):
+        raise SystemExit(f"{label}: a score without CIDEr")
+    if not os.path.isfile(ckpt.replace(".ckpt", "_last.ckpt")):
+        raise SystemExit(f"{label}: no _last checkpoint")
+    if launches < 1:
+        raise SystemExit(f"{label}: the fit never launched its eval kernel")
+    vocab = train_loader.dataset.vocab
+    for phase, loader in (("train", train_loader), ("val", val_loader)):
+        vc = video_dataset_to_video_captions_loader(
+            loader.dataset, batch_size=cfg.batch_size, frame_buckets=tuple(cfg.frame_buckets))
+        eval_agreement(tr, model, vc, vocab, tr.generated[phase, cfg.epochs],
+                       lambda b: plain_fn(params, b, cfg), f"{label} {phase}", least)
+    return launches
+
+
+def train_step_work(model, params, b, t, l):
+    """(FLOPs, bytes, parameter count) of one fused-loss train step at
+    [B, T] features and L caption tokens.  FLOPs: 3x the forward's
+    products (each GEMM's two backward GEMMs), the forward being per
+    decoder the attention keys, the hoisted embedding rows of wi, per step
+    the query, energies, context (or P-sum), context rows of wi (or P's
+    build once) and wh, and the vocab projection; per global reconstructor
+    the hoisted input GEMM and the recurrence.  Bytes: the batch, then the
+    params, grads and three moment trees read once and params and moments
+    written once."""
+    from mvc_tpu_torch.models.decoder import _train_factored
+    from mvc_tpu_torch.training.optimizer import tree_leaves
+
+    steps, fwd = l - 1, 0
+    for c in (model.v_config, model.a_config):
+        F, E, H, A, Vc = (c.in_feature_size, c.embedding_size, c.rnn_hidden_size, c.attn_size,
+                          c.output_size)
+        GH = 4 * H
+        fwd += 2 * b * t * F * A + 2 * steps * b * E * GH + 2 * steps * b * H * Vc
+        fwd += steps * (2 * b * H * A + 2 * b * t * A + 2 * b * H * GH)
+        if _train_factored(b, t, F, GH, l):
+            fwd += 2 * b * t * F * GH + steps * 2 * b * t * GH
+        else:
+            fwd += steps * (2 * b * t * F + 2 * b * F * GH)
+    for rc in (model.v_rec_config, model.a_rec_config):
+        fr, d = rc.hidden_size, 2 * rc.decoder_size
+        fwd += 2 * steps * b * d * 4 * fr + 2 * steps * b * fr * 4 * fr
+    n = sum(p.numel() for p in tree_leaves(params))
+    nbytes = 4 * n * (5 + 4) + b * t * (2048 + 128) * 2 + b * t + l * b * 4
+    return 3 * fwd, nbytes, n
+
+
+def host_data_times(card, ds, vocab_path, device):
+    """The fit's host side alone, over one epoch of the train split: the
+    loader (npy loads and collation on its prefetch thread), then the
+    loader plus ``Trainer._device_batches`` (bf16 host cast, pinned copy to
+    the card, its own prefetch thread).  Prints samples/s of each."""
+    from mvc_tpu_torch.data import get_loader
+
+    loader, data = get_loader(ds, "MSVD", "train", batch_size=TRAIN_B, vocab_path=vocab_path,
+                              verbose=False)
+    tr = smoke_trainer("unused.ckpt")
+    tr._transfer_dtype, tr._device_prefetch = torch.bfloat16, True
+    out = {}
+    for name, it in (("loader", lambda: loader),
+                     ("loader + device copies", lambda: tr._device_batches(loader, device))):
+        t0 = time.perf_counter()
+        for _ in it():
+            pass
+        torch.cuda.synchronize()
+        out[name] = len(data) / (time.perf_counter() - t0)
+    log(f"[{card}] [train host] one epoch of host data alone ({len(data)} samples, B={TRAIN_B}): "
+        + ", ".join(f"{k} {v:.2f} samples/s" for k, v in out.items()))
+
+
+def train_step_times(card, cfg, device, t_, l_):
+    """(d) the train step on one device-resident batch of B=128 at [T, L]
+    (bench.py's shape is T=28, L=8): ms per step (median of 20) and
+    samples/s, then the parts with CUDA events (median of 20 each):
+    forward, loss, backward, optimizer; and the step's bound."""
+    from mvc_tpu_torch.data.dataset import collate_av_batch
+    from mvc_tpu_torch.training import fused_loss, losses
+    from mvc_tpu_torch.training import optimizer as opt_lib
+
+    rng = np.random.default_rng(11)
+    items = [{"audio": rng.standard_normal((t_, 128), dtype=np.float32),
+              "visual": rng.standard_normal((t_, 2048), dtype=np.float32),
+              "caption": np.concatenate([[1], rng.integers(4, V, l_ - 2), [2]]).astype(np.int32)}
+             for _ in range(TRAIN_B)]
+    host = collate_av_batch(items, frame_buckets=(t_,), caption_buckets=(l_,))
+    model, params = dual_model(device)
+    tr = smoke_trainer("unused.ckpt")
+    tr._transfer_dtype = torch.bfloat16
+    batch = tr._put_batch(host, device)
+    batch.pop("_n_real")
+    step, _ = tr._build_train_step(model, cfg)
+    opt = opt_lib.make_optimizer(cfg, params)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        params, _m = step(params, opt, batch, gen)
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(20):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, _m = step(params, opt, batch, gen)
+        ev[1].record()
+        pairs.append(ev)
+    torch.cuda.synchronize()
+    step_ms = float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+    # the parts: the trainer's fused-path compute_loss, cut at its seams
+    caps, fm, sm = batch["captions"], batch["feat_mask"], batch["sample_mask"]
+    parts = []
+    for _ in range(20):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        h_list, outs, a_rec, v_rec = model.forward_hiddens(
+            params, batch["audio"], batch["visual"], caps, gen=gen, feat_mask=fm)
+        ev[1].record()
+        ce, ent = fused_loss.ce_entropy_from_hiddens(h_list, outs, caps, sample_mask=sm,
+                                                     compute_dtype=model.dtype)
+        a_l = losses._single_reconstruction_loss(caps, batch["audio"], a_rec, "global", fm, sm)
+        v_l = losses._single_reconstruction_loss(caps, batch["visual"], v_rec, "global", fm, sm)
+        loss = ce + cfg.reg_lambda * ent + cfg.audio_recon_lambda * a_l \
+            + cfg.visual_recon_lambda * v_l
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        parts.append(ev)
+    torch.cuda.synchronize()
+    names = ("forward", "loss", "backward", "optimizer")
+    part_ms = {n: float(np.median([ev[i].elapsed_time(ev[i + 1]) for ev in parts]))
+               for i, n in enumerate(names)}
+    flops, nbytes, n_params = train_step_work(model, params, TRAIN_B, t_, l_)
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    log(f"[{card}] [train d] train step f32 (no TF32), dual + global reconstructor, "
+        f"{n_params} params, B={TRAIN_B} T={t_} L={l_} V={V}: {step_ms:.4f} ms per step "
+        f"(median of 20), {TRAIN_B / step_ms * 1e3:.2f} samples/s; parts (median of 20): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in part_ms.items())
+        + f" (sum {sum(part_ms.values()):.4f}); bound {bound:.4f} ms ({by}: "
+        f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+    if not np.isfinite(float(_m[0])):
+        raise SystemExit("the timed train steps gave a loss that is not finite")
+
+
+def train_phase(card, device):
+    """6. the training slice at full width (dual model, global
+    reconstructors, V=4000, B=128, f32): (a) one train step card vs CPU,
+    (b) a 2-epoch fit whose evals decode through dual_greedy.cu, (c) a
+    1-epoch fit on 128 clips whose evals decode through beam.cu, (d) the
+    train step's times at two shapes, and the host data side alone.
+    Returns each kernel's launches during its fit."""
+    import shutil
+
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise SystemExit("float32 matmuls must run without TF32")
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds, vocab_path = write_synthetic_msvd(TRAIN_ROOT)
+    log(f"[train] synthetic MSVD tree (512 train, 128 val clips, T 20..40, V={V}) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cells, f32 = ("LSTM", "LSTM"), torch.float32     # the fits compute in float32
+
+    def plain_greedy(params, b, cfg):
+        return dg.dual_greedy_decode_reference([params["v_decoder"], params["a_decoder"]],
+                                               [b["visual"], b["audio"]], b["feat_mask"],
+                                               cfg.eval_max_caption_len, f32, cells)
+
+    def plain_beam(params, b, cfg):
+        return bm.beam_decode_reference([params["v_decoder"], params["a_decoder"]],
+                                        [b["visual"], b["audio"]], b["feat_mask"],
+                                        cfg.eval_max_caption_len, cfg.eval_beam_width,
+                                        cfg.eval_beam_alpha, f32, cells)
+
+    train_step_card_vs_cpu(card, TrainerConfig(batch_size=TRAIN_B), ds, vocab_path, device)
+    fit = {"dual_greedy": fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=2), ds,
+                                    vocab_path, "train", "direct", dg.dual_greedy_decode,
+                                    plain_greedy, 0.99, device),
+           "beam": fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=1, eval_mode="beam"),
+                             ds, vocab_path, "tiny", "beam", bm.beam_decode, plain_beam, 0.97,
+                             device)}
+    host_data_times(card, ds, vocab_path, device)
+    for t_, l_ in ((28, 8), (48, 16)):          # bench.py's shape, the fit's largest buckets
+        train_step_times(card, TrainerConfig(batch_size=TRAIN_B), device, t_, l_)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    return fit
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -837,25 +1233,33 @@ def main() -> int:
     # other kernel's timing
     beam_tiles(bm, dc, card, decoders, [vf, af], mask, cells, s_dec, sf, device)
 
+    # -- 6. training
+    fit_launches = train_phase(card, device)
+
     record = {"kernels": [
         {"name": "dual_greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/dual_greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_dual_greedy.py:314",
          "launches": g_launches, "max_abs_err": g_err,
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": None},
+         "library_ms": None,
+         "launches_by_path": {"serve dual direct": g_launches,
+                              "train fit direct eval": fit_launches["dual_greedy"]}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
          "launches": b_launches, "max_abs_err": b_err,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
-         "library_ms": None},
+         "library_ms": None,
+         "launches_by_path": {"serve dual beam": b_launches, "serve single beam": sb_launches,
+                              "train fit beam eval": fit_launches["beam"]}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",
          "launches": s_launches, "max_abs_err": s_err,
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None},
+         "library_ms": None,
+         "launches_by_path": {"serve single direct": s_launches}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

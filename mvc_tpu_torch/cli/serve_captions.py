@@ -5,7 +5,9 @@
         [--mode direct|beam] [--beam_width 5] [--beam_alpha 0.0] [--device cuda|cpu]
 
 The port of ``scripts/serve_captions.py``: the same flags plus ``--device``.
-Reads checkpoints written by the JAX package's ``save_checkpoint``.  On the
+Reads checkpoints written by this package's or the JAX package's
+``save_checkpoint``, and the reference's torch ``.ckpt`` (converted by
+``utils/checkpoint_convert.py``).  On the
 card the decode runs the hand-written CUDA kernels (``--mode direct``:
 ``csrc/dual_greedy.cu``; ``--mode beam``: ``csrc/beam.cu``, beam width up
 to 8); ``--pallas`` is accepted for the same command line and changes
@@ -49,7 +51,7 @@ def main(argv=None):
     from mvc_tpu_torch.data import Vocabulary
     from mvc_tpu_torch.models.captioning import AVCaptioningDual
     from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
-    from mvc_tpu_torch.training.checkpoint import load_checkpoint
+    from mvc_tpu_torch.utils.checkpoint_convert import load_params_checkpoint
     from mvc_tpu_torch.utils.device import resolve_device
     from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
 
@@ -62,11 +64,9 @@ def main(argv=None):
             vocab_path = os.path.join(dataset_folder, "metadata", "vocab.pkl")
     vocab = Vocabulary.load(vocab_path)
 
-    ckpt = load_checkpoint(args.checkpoint)
+    ckpt = load_params_checkpoint(args.checkpoint)
     if ckpt is None or "params" not in ckpt:
-        raise SystemExit(
-            f"{args.checkpoint} is not a checkpoint of this package; converting the "
-            "reference's torch .ckpt is not ported yet (mvc_tpu/utils/checkpoint_convert.py)")
+        raise SystemExit(f"{args.checkpoint} is not a checkpoint this program reads")
     params = from_numpy_tree(ckpt["params"], device)
 
     model = AVCaptioningDual(vocab_size=len(vocab), reconstructor_type=args.reconstructor,

@@ -1,15 +1,22 @@
-"""Word <-> index vocabulary, the serving subset of ``mvc_tpu/data/vocabulary.py``:
-load (our JSON or the reference's pickle), save, ``decode_indexes`` (stops at
-the first ``<EOS>``) and ``__len__``.  Building a vocabulary and its tokenizer
-belong to the training slice."""
+"""Word <-> index vocabulary (``mvc_tpu/data/vocabulary.py``):
+
+- specials ``<PAD>=0, <SOS>=1, <EOS>=2, <UNK>=3``
+- a word enters the vocabulary the moment its running count reaches
+  ``freq_threshold``, so the id order follows the sentences' order
+- ``numericalize`` maps OOV words to ``<UNK>``; ``apply_vocab`` rewrites
+  them to the literal ``"<UNK>"`` for ground-truth captions
+- ``decode_indexes`` stops at the first ``<EOS>``
+- load reads our JSON or the reference's pickle; save writes JSON
+"""
 
 from __future__ import annotations
 
 import json
 import pickle
-from typing import Dict, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 from mvc_tpu_torch.config import EOS_ID, PAD_ID, SOS_ID, UNK_ID
+from mvc_tpu_torch.data.tokenizer import tokenize
 
 _SPECIALS = {PAD_ID: "<PAD>", SOS_ID: "<SOS>", EOS_ID: "<EOS>", UNK_ID: "<UNK>"}
 
@@ -22,6 +29,42 @@ class Vocabulary:
 
     def __len__(self) -> int:
         return len(self.itos)
+
+    @staticmethod
+    def tokenizer_eng(text: str) -> List[str]:
+        return tokenize(text)
+
+    def build_vocabulary(self, sentence_list: Iterable[str]) -> None:
+        """Streaming frequency-threshold build: a word takes the next id the
+        moment its count reaches the threshold."""
+        frequencies: Dict[str, int] = {}
+        idx = len(_SPECIALS)
+        for sentence in sentence_list:
+            for word in self.tokenizer_eng(sentence):
+                frequencies[word] = frequencies.get(word, 0) + 1
+                if frequencies[word] == self.freq_threshold:
+                    self.stoi[word] = idx
+                    self.itos[idx] = word
+                    idx += 1
+
+    def numericalize(self, text: str) -> List[int]:
+        return [self.stoi.get(tok, UNK_ID) for tok in self.tokenizer_eng(text)]
+
+    def encode_caption(self, text: str) -> List[int]:
+        """<SOS> + tokens + <EOS>."""
+        return [SOS_ID, *self.numericalize(text), EOS_ID]
+
+    def apply_vocab(self, sentence: str) -> str:
+        toks = [t if t in self.stoi else "<UNK>" for t in self.tokenizer_eng(sentence)]
+        return " ".join(toks)
+
+    @staticmethod
+    def prebuild(sentence_list: Iterable[str], outpath: str,
+                 freq_threshold: int = 5) -> "Vocabulary":
+        vocab = Vocabulary(freq_threshold)
+        vocab.build_vocabulary(sentence_list)
+        vocab.save(outpath)
+        return vocab
 
     def decode_indexes(self, indexes: Sequence[int]) -> str:
         words = []

@@ -51,6 +51,15 @@ def masked_softmax(energies: torch.Tensor, mask: Optional[torch.Tensor],
     return unnorm / torch.clamp(denom, min=torch.finfo(energies.dtype).tiny)
 
 
+def attention_weights(params, hidden: torch.Tensor, keys: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """hidden [B, H], keys [B, T, A] -> weights [B, T]."""
+    d = keys.dtype
+    query = hidden.to(d) @ params["W"].to(d)                      # [B, A]
+    energies = torch.tanh(query[:, None, :] + keys + params["b"].to(d)) @ params["w"].to(d)
+    return masked_softmax(energies, mask, dim=1)
+
+
 def attend(params, hidden: torch.Tensor, feats: torch.Tensor,
            keys: Optional[torch.Tensor] = None,
            mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,9 +67,6 @@ def attend(params, hidden: torch.Tensor, feats: torch.Tensor,
     (True = attendable) -> (context [B, F], weights [B, T])."""
     if keys is None:
         keys = precompute_keys(params, feats)
-    d = keys.dtype
-    query = hidden.to(d) @ params["W"].to(d)                      # [B, A]
-    energies = torch.tanh(query[:, None, :] + keys + params["b"].to(d)) @ params["w"].to(d)
-    weights = masked_softmax(energies, mask, dim=1)
+    weights = attention_weights(params, hidden, keys, mask)
     context = torch.einsum("bt,btf->bf", weights, feats)
     return context, weights

@@ -1,8 +1,11 @@
-"""Captioners, the serving subset of ``mvc_tpu/models/captioning.py``:
-``AVCaptioning`` (one decoder over the concatenated ``[audio | visual]``
-features) and ``AVCaptioningDual`` (per-modality decoders whose log-probs
-are summed), each with direct- and beam-mode ``predict_tokens``; the plain
-composition ``dual_greedy_tokens_fused`` and ``captions_from_tokens``.
+"""Captioners (``mvc_tpu/models/captioning.py``): ``AVCaptioning`` (one
+decoder over the concatenated ``[audio | visual]`` features, serving only)
+and ``AVCaptioningDual`` (per-modality decoders whose log-probs are summed,
+with reconstructors and the training forwards), each with direct- and
+beam-mode ``predict_tokens``; the plain composition
+``dual_greedy_tokens_fused``, the dual training decodes
+(``dual_decode_fused`` / ``dual_decode_hiddens``) and
+``captions_from_tokens``.
 
 Like the JAX models they are stateless config holders; parameters live in
 a plain dict tree with the JAX layout (``decoder`` / ``reconstructor`` for
@@ -24,9 +27,12 @@ from mvc_tpu_torch.config import (
     SOS_ID,
     VISUAL_DECODER_CONFIG,
     DecoderConfig,
+    ReconstructorConfig,
 )
+from mvc_tpu_torch.models import attention as attn
 from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
+from mvc_tpu_torch.models import reconstructor as rec
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.ops.beam import beam_decode
 from mvc_tpu_torch.ops.beam import max_frames as beam_max_frames
@@ -78,6 +84,132 @@ def dual_greedy_tokens_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: De
     return tokens
 
 
+def _dual_tf_hoisted_hiddens(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats, captions,
+                             feat_mask, dtype, v_keys, a_keys):
+    """Both decoders under full teacher forcing with the hoisted GEMMs, in
+    one step loop (``mvc_tpu/models/captioning.py:95``): returns (v_hids,
+    a_hids), each [L-1, B, H] f32, without the vocab projections."""
+    L, B = captions.shape
+    fed = dec._fed_tokens(captions)
+
+    def prep(params, cfg, feats):
+        E = cfg.embedding_size
+        wi = params["rnn"]["wi"]
+        gi = (params["embedding"]["table"][fed].to(dtype) @ wi[:E].to(dtype)
+              + params["rnn"]["bi"].to(dtype))
+        factored = dec._train_factored(B, feats.shape[1], feats.shape[2], wi.shape[1], L)
+        P = feats @ wi[E:].to(dtype) if factored else None
+        return gi, P, wi[E:].to(dtype)
+
+    streams = [(v_params, v_cfg, v_feats, v_keys, *prep(v_params, v_cfg, v_feats)),
+               (a_params, a_cfg, a_feats, a_keys, *prep(a_params, a_cfg, a_feats))]
+    states = [rnn.init_state(c.rnn_type, B, c.rnn_hidden_size, dtype, v_feats.device)
+              for c in (v_cfg, a_cfg)]
+    hids = ([], [])
+    for t in range(L - 1):
+        for d, (params, cfg, feats, keys, gi_all, P, wi_ctx) in enumerate(streams):
+            h = rnn.state_hidden(cfg.rnn_type, states[d])
+            if P is not None:
+                weights = attn.attention_weights(params["attention"], h, keys, feat_mask)
+                gi = gi_all[t] + torch.einsum("bt,bth->bh", weights, P)
+            else:
+                context, _ = attn.attend(params["attention"], h, feats, keys=keys,
+                                         mask=feat_mask)
+                gi = gi_all[t] + context.to(dtype) @ wi_ctx
+            _, states[d] = rnn.rnn_step_pre(params["rnn"], cfg.rnn_type, gi, states[d])
+            hids[d].append(rnn.state_hidden(cfg.rnn_type, states[d]).float())
+    return torch.stack(hids[0]), torch.stack(hids[1])
+
+
+def _dual_free_run(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats, v_keys, a_keys, gold,
+                   tf_v, tf_a, feat_mask, dtype, keep_outputs):
+    """Both decoders' generic loops in one: each feeds its own gold token or
+    argmax by its own coins.  Returns (v_outs, v_hids, a_outs, a_hids),
+    each [L-1, B, *] (outputs None unless ``keep_outputs``)."""
+    B = v_feats.shape[0]
+    cfgs, params = (v_cfg, a_cfg), (v_params, a_params)
+    feats, keys, coins = (v_feats, a_feats), (v_keys, a_keys), (tf_v, tf_a)
+    states = [rnn.init_state(c.rnn_type, B, c.rnn_hidden_size, dtype, v_feats.device)
+              for c in cfgs]
+    prev = [torch.full((B,), SOS_ID, dtype=torch.long, device=v_feats.device)] * 2
+    outs = [[torch.zeros((0, B, c.output_size), device=v_feats.device)] for c in cfgs]
+    hids = [[torch.zeros((0, B, c.rnn_hidden_size), device=v_feats.device)] for c in cfgs]
+    for t in range(1, gold.shape[0]):
+        for d in range(2):
+            logp, states[d], _ = dec.decoder_step(params[d], cfgs[d], prev[d], states[d],
+                                                  feats[d], keys[d], feat_mask, dtype)
+            prev[d] = gold[t].long() if bool(coins[d][t]) else torch.argmax(logp, dim=-1)
+            if keep_outputs:
+                outs[d].append(logp[None])
+            hids[d].append(rnn.state_hidden(cfgs[d].rnn_type, states[d]).float()[None])
+    cat = [torch.cat(x) for x in (outs[0], hids[0], outs[1], hids[1])]
+    if not keep_outputs:
+        cat[0] = cat[2] = None
+    return tuple(cat)
+
+
+def _dual_operands(v_params, a_params, visual, audio, dtype):
+    v_feats, a_feats = visual.to(dtype), audio.to(dtype)
+    return (v_feats, a_feats, attn.precompute_keys(v_params["attention"], v_feats),
+            attn.precompute_keys(a_params["attention"], a_feats))
+
+
+def _dual_coins(teacher_forcing_ratio, L, gen):
+    """Each decoder's own coins, the visual decoder's drawn first."""
+    if gen is None and teacher_forcing_ratio > 0:
+        gen = torch.Generator().manual_seed(0)
+    return (dec.teacher_forcing_coins(teacher_forcing_ratio, L, gen),
+            dec.teacher_forcing_coins(teacher_forcing_ratio, L, gen))
+
+
+def dual_decode_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderConfig,
+                      visual: torch.Tensor, audio: torch.Tensor,
+                      captions: Optional[torch.Tensor], teacher_forcing_ratio: float,
+                      gen: Optional[torch.Generator], feat_mask: Optional[torch.Tensor],
+                      dtype=torch.float32, max_caption_len: Optional[int] = None):
+    """Both decoders stepped in one loop (``mvc_tpu/models/captioning.py:188``),
+    each with its own teacher-forcing coins, feeding its own argmax when not
+    forced; ratio >= 1 takes the hoisted path.  Returns (v_outputs,
+    v_hiddens, a_outputs, a_hiddens), each [L, B, *], row 0 zero."""
+    B = visual.shape[0]
+    L = int(captions.shape[0]) if captions is not None else int(max_caption_len)
+    v_feats, a_feats, v_keys, a_keys = _dual_operands(v_params, a_params, visual, audio, dtype)
+    if captions is not None and teacher_forcing_ratio >= 1.0 and L > 1:
+        v_h, a_h = _dual_tf_hoisted_hiddens(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
+                                            captions, feat_mask, dtype, v_keys, a_keys)
+        v_o, a_o = dec._project(v_params, v_h, dtype), dec._project(a_params, a_h, dtype)
+    else:
+        tf_v, tf_a = _dual_coins(teacher_forcing_ratio if captions is not None else 0.0, L, gen)
+        gold = captions if captions is not None else torch.zeros(
+            (L, B), dtype=torch.long, device=visual.device)
+        v_o, v_h, a_o, a_h = _dual_free_run(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
+                                            v_keys, a_keys, gold, tf_v, tf_a, feat_mask, dtype,
+                                            True)
+    return (dec._pad0(v_o, v_cfg.output_size), dec._pad0(v_h, v_cfg.rnn_hidden_size),
+            dec._pad0(a_o, a_cfg.output_size), dec._pad0(a_h, a_cfg.rnn_hidden_size))
+
+
+def dual_decode_hiddens(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderConfig,
+                        visual: torch.Tensor, audio: torch.Tensor, captions: torch.Tensor,
+                        teacher_forcing_ratio: float, gen: Optional[torch.Generator],
+                        feat_mask: Optional[torch.Tensor], dtype=torch.float32):
+    """Hiddens-only dual training decode (``mvc_tpu/models/captioning.py:257``):
+    the trajectories of ``dual_decode_fused`` without stacking either
+    decoder's [L, B, V] log-probs.  Returns (v_hiddens, a_hiddens), each
+    [L, B, H] f32, row 0 zero."""
+    L = int(captions.shape[0])
+    v_feats, a_feats, v_keys, a_keys = _dual_operands(v_params, a_params, visual, audio, dtype)
+    if teacher_forcing_ratio >= 1.0 and L > 1:
+        v_h, a_h = _dual_tf_hoisted_hiddens(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
+                                            captions, feat_mask, dtype, v_keys, a_keys)
+    else:
+        tf_v, tf_a = _dual_coins(teacher_forcing_ratio, L, gen)
+        _, v_h, _, a_h = _dual_free_run(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
+                                        v_keys, a_keys, captions, tf_v, tf_a, feat_mask, dtype,
+                                        False)
+    return dec._pad0(v_h, v_cfg.rnn_hidden_size), dec._pad0(a_h, a_cfg.rnn_hidden_size)
+
+
 def captions_from_tokens(vocab, tokens) -> List[str]:
     """[B, L] token ids -> caption strings; drops position 0 and stops at EOS."""
     if isinstance(tokens, torch.Tensor):
@@ -89,8 +221,8 @@ def captions_from_tokens(vocab, tokens) -> List[str]:
 def _require_no_reconstructor(reconstructor_type: str) -> None:
     if reconstructor_type != "none":
         raise NotImplementedError(
-            "reconstructor init arrives with the training slice; serving reads "
-            "checkpointed reconstructor leaves as they are")
+            "the single model's reconstructor and training are not ported yet "
+            "(ROADMAP.md); serving reads checkpointed reconstructor leaves as they are")
 
 
 class AVCaptioning:
@@ -111,7 +243,7 @@ class AVCaptioning:
 
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen`` (a CPU generator), on the model's
-        device.  Reconstructors are not served and not ported yet."""
+        device.  The single model's reconstructors are not ported yet."""
         _require_no_reconstructor(self.reconstructor_type)
         return {"decoder": dec.init_decoder(gen, self.decoder_config, device=self.device),
                 "reconstructor": None}
@@ -178,13 +310,20 @@ class AVCaptioning:
 
 class AVCaptioningDual:
     """Dual-stream late-fusion captioner — the model the reference trains.
-    Fusion is an elementwise sum of the two decoders' log-probs."""
+    Fusion is an elementwise sum of the two decoders' log-probs; each
+    decoder has its own reconstructor (``reconstructor_type``)."""
 
-    def __init__(self, vocab_size: int, reconstructor_type: str = "none",
+    def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
+                 reconstructor_type: str = "none",
                  visual_decoder_config: Optional[DecoderConfig] = None,
                  audio_decoder_config: Optional[DecoderConfig] = None,
+                 reconstructor_config: Optional[ReconstructorConfig] = None,
                  dtype=torch.float32, device="cuda"):
+        if reconstructor_type not in ("none", "global", "local"):
+            raise ValueError(f"reconstructor_type must be none, global or local, "
+                             f"got {reconstructor_type!r}")
         self.vocab_size = vocab_size
+        self.teacher_forcing_ratio = teacher_forcing_ratio
         self.reconstructor_type = reconstructor_type
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -192,17 +331,62 @@ class AVCaptioningDual:
             output_size=vocab_size)
         self.a_config = (audio_decoder_config or AUDIO_DECODER_CONFIG).replace(
             output_size=vocab_size)
+        rbase = reconstructor_config or ReconstructorConfig()
+        self.v_rec_config = rbase.replace(type=reconstructor_type,
+                                          decoder_size=self.v_config.rnn_hidden_size,
+                                          hidden_size=self.v_config.in_feature_size)
+        self.a_rec_config = rbase.replace(type=reconstructor_type,
+                                          decoder_size=self.a_config.rnn_hidden_size,
+                                          hidden_size=self.a_config.in_feature_size)
 
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen`` (a CPU generator), on the model's
-        device.  Reconstructors are not served and not ported yet."""
-        _require_no_reconstructor(self.reconstructor_type)
+        device, drawn in the order v_decoder, a_decoder, v_reconstructor,
+        a_reconstructor."""
+        d = self.device
         return {
-            "v_decoder": dec.init_decoder(gen, self.v_config, device=self.device),
-            "a_decoder": dec.init_decoder(gen, self.a_config, device=self.device),
-            "v_reconstructor": None,
-            "a_reconstructor": None,
+            "v_decoder": dec.init_decoder(gen, self.v_config, device=d),
+            "a_decoder": dec.init_decoder(gen, self.a_config, device=d),
+            "v_reconstructor": rec.init_reconstructor(gen, self.v_rec_config, device=d),
+            "a_reconstructor": rec.init_reconstructor(gen, self.a_rec_config, device=d),
         }
+
+    def _reconstruct(self, params, v_h, a_h, v_out, a_out, captions, audio, visual):
+        a_rec = rec.reconstruct(params["a_reconstructor"], self.a_rec_config, a_h, a_out,
+                                captions, feat_len=audio.shape[1], dtype=self.dtype)
+        v_rec = rec.reconstruct(params["v_reconstructor"], self.v_rec_config, v_h, v_out,
+                                captions, feat_len=visual.shape[1], dtype=self.dtype)
+        return a_rec, v_rec
+
+    def forward(self, params, audio: torch.Tensor, visual: torch.Tensor,
+                captions: torch.Tensor, gen: Optional[torch.Generator] = None,
+                teacher_forcing_ratio: Optional[float] = None,
+                feat_mask: Optional[torch.Tensor] = None):
+        """(outputs [L, B, V] summed log-probs, audio_recons, visual_recons)
+        (``mvc_tpu/models/captioning.py:658``); each decoder draws its own
+        teacher-forcing coins from ``gen``."""
+        tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
+        v_out, v_h, a_out, a_h = dual_decode_fused(
+            params["v_decoder"], params["a_decoder"], self.v_config, self.a_config,
+            visual, audio, captions, tf, gen, feat_mask, self.dtype)
+        a_rec, v_rec = self._reconstruct(params, v_h, a_h, v_out, a_out, captions, audio, visual)
+        return a_out + v_out, a_rec, v_rec
+
+    def forward_hiddens(self, params, audio: torch.Tensor, visual: torch.Tensor,
+                        captions: torch.Tensor, gen: Optional[torch.Generator] = None,
+                        teacher_forcing_ratio: Optional[float] = None,
+                        feat_mask: Optional[torch.Tensor] = None):
+        """The fused-loss forward (``mvc_tpu/models/captioning.py:702``): the
+        trajectories and reconstructions of ``forward`` without either
+        [L, B, V] stack.  Returns ((v_hiddens, a_hiddens), (v_out, a_out)
+        vocab projections, audio_recons, visual_recons)."""
+        tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
+        v_h, a_h = dual_decode_hiddens(
+            params["v_decoder"], params["a_decoder"], self.v_config, self.a_config,
+            visual, audio, captions, tf, gen, feat_mask, self.dtype)
+        a_rec, v_rec = self._reconstruct(params, v_h, a_h, None, None, captions, audio, visual)
+        outs = (params["v_decoder"]["out"], params["a_decoder"]["out"])
+        return (v_h, a_h), outs, a_rec, v_rec
 
     def predict_tokens(self, params, audio: torch.Tensor, visual: torch.Tensor,
                        max_caption_len: int = 30, mode: str = "direct",

@@ -93,6 +93,9 @@ def test_own_copies_match_jax_package(tmp_path):
     for name in ("VISUAL_DECODER_CONFIG", "AUDIO_DECODER_CONFIG", "SINGLE_DECODER_CONFIG"):
         assert (dataclasses.asdict(getattr(tcfg, name))
                 == dataclasses.asdict(getattr(jcfg, name))), name
+    for name in ("ReconstructorConfig", "TrainerConfig", "ModelConfig"):
+        assert (dataclasses.asdict(getattr(tcfg, name)())
+                == dataclasses.asdict(getattr(jcfg, name)())), name
     ladder = (8, 16, 32, 48, 64)
     assert [_bucket(t, ladder) for t in range(1, 300)] == \
         [jax_bucket(t, ladder) for t in range(1, 300)]
@@ -170,3 +173,50 @@ def test_single_model_checkpoint_from_jax_save_loads(tmp_path):
     got = tmodel.predict_tokens(port, torch.from_numpy(audio), torch.from_numpy(visual),
                                 max_caption_len=5).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_reference_checkpoint_converts_as_the_jax_converter(tmp_path):
+    """A state_dict with the reference's names, saved as a torch .ckpt,
+    converts to the JAX converter's tree leaf for leaf, and the serve CLI's
+    loader takes it."""
+    from mvc_tpu.utils.checkpoint_convert import convert_reference_checkpoint as jax_convert
+    from mvc_tpu_torch.utils.checkpoint_convert import (
+        convert_reference_checkpoint,
+        load_params_checkpoint,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    V, E, H, A = 19, 8, 16, 8
+
+    def rnn(prefix, n_in, hidden):
+        return {f"{prefix}.weight_ih_l0": torch.randn(4 * hidden, n_in, generator=gen),
+                f"{prefix}.weight_hh_l0": torch.randn(4 * hidden, hidden, generator=gen),
+                f"{prefix}.bias_ih_l0": torch.randn(4 * hidden, generator=gen),
+                f"{prefix}.bias_hh_l0": torch.randn(4 * hidden, generator=gen)}
+
+    def attention(prefix, hidden, feat):
+        return {f"{prefix}.W.weight": torch.randn(A, hidden, generator=gen),
+                f"{prefix}.U.weight": torch.randn(A, feat, generator=gen),
+                f"{prefix}.b": torch.randn(A, generator=gen),
+                f"{prefix}.w.weight": torch.randn(1, A, generator=gen)}
+
+    def decoder(F):
+        return {"embedding.weight": torch.randn(V, E, generator=gen),
+                **attention("attention", H, F), **rnn("rnn", E + F, H),
+                "out.weight": torch.randn(V, H, generator=gen),
+                "out.bias": torch.randn(V, generator=gen)}
+
+    ckpt = {"epoch": 7, "v_decoder": decoder(24), "a_decoder": decoder(12),
+            "v_reconstructor": {**rnn("rnn", H, 24), **attention("attention", 24, H)},
+            "a_reconstructor": rnn("rnn", 2 * H, 12), "history": {"train_loss": [1.5]}}
+    path = str(tmp_path / "reference.ckpt")
+    torch.save(ckpt, path)
+    got = convert_reference_checkpoint(path)
+    want = jax_convert(path)
+    assert got["epoch"] == want["epoch"] == 7 and got["history"] == want["history"]
+    _assert_same_tree(got["params"], jax.tree.map(np.asarray, want["params"]))
+    assert set(got["params"]["v_reconstructor"]) == {"rnn", "attention"}
+    assert set(got["params"]["a_reconstructor"]) == {"rnn"}
+    _assert_same_tree(load_params_checkpoint(path)["params"], got["params"])
+    port = from_numpy_tree(got["params"])
+    assert tuple(port["v_decoder"]["rnn"]["wi"].shape) == (E + 24, 4 * H)
