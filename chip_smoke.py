@@ -635,10 +635,24 @@ def named_leaves(tree, prefix=""):
     return [] if tree is None else [(prefix[:-1], tree)]
 
 
+class GradCapture:
+    """Stands in for the optimizer in the trainer's step: keeps each leaf's
+    gradient on the host, then steps the real optimizer."""
+
+    def __init__(self, opt, params):
+        self.opt, self.named = opt, named_leaves(params)
+
+    def step(self):
+        self.grads = {k: p.grad.detach().cpu().clone() for k, p in self.named}
+        self.opt.step()
+
+
 def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
     """(a) one train step from the same weights and batch on the card and
-    on the CPU: the loss within 1e-4 relative and every parameter leaf
-    within 1e-3 of its largest value (max |card - cpu| / max |cpu|)."""
+    on the CPU: the loss within 1e-4 relative, every gradient leaf within
+    1e-4 relative in norm (||card - cpu|| / ||cpu||, before the optimizer's
+    clip), and every parameter leaf after the step within 1e-3 of its
+    largest value (max |card - cpu| / max |cpu|)."""
     from mvc_tpu_torch.data.dataset import VideoCaptioningDataset
     from mvc_tpu_torch.data.loader import DataLoader
     from mvc_tpu_torch.training import optimizer as opt_lib
@@ -651,25 +665,30 @@ def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
         tr = smoke_trainer("unused.ckpt")
         tr._transfer_dtype = torch.bfloat16          # fit's default transfer dtype
         step, _ = tr._build_train_step(model, cfg)
-        opt = opt_lib.make_optimizer(cfg, params)
+        opt = GradCapture(opt_lib.make_optimizer(cfg, params), params)
         b = tr._put_batch(batch, dev)
         b.pop("_n_real")
         t0 = time.perf_counter()
         params, metrics = step(params, opt, b, torch.Generator().manual_seed(1))
         metrics = metrics.cpu()
-        out[dev.type] = (metrics, {k: v.detach().cpu() for k, v in named_leaves(params)},
+        out[dev.type] = (metrics, opt.grads,
+                         {k: v.detach().cpu() for k, v in named_leaves(params)},
                          time.perf_counter() - t0)
-    (m_c, p_c, s_c), (m_h, p_h, s_h) = out["cuda"], out["cpu"]
+    (m_c, g_c, p_c, s_c), (m_h, g_h, p_h, s_h) = out["cuda"], out["cpu"]
     loss_rel = abs(float(m_c[0]) - float(m_h[0])) / abs(float(m_h[0]))
+    g_rel = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp_min(1e-30)) for k in g_h}
     rel = {k: float((p_c[k] - p_h[k]).abs().max() / p_h[k].abs().max().clamp_min(1e-30))
            for k in p_h}
-    worst = max(rel, key=rel.get)
+    g_worst, worst = max(g_rel, key=g_rel.get), max(rel, key=rel.get)
     log(f"[train a] one train step, same weights and batch (B={TRAIN_B}, T="
         f"{batch['visual'].shape[1]}, L={batch['captions'].shape[0]}): card losses "
         f"{[round(float(x), 6) for x in m_c]} ({s_c:.2f} s with warm-up), cpu "
         f"{[round(float(x), 6) for x in m_h]} ({s_h:.2f} s); loss relative difference "
-        f"{loss_rel:.3e}; max relative parameter difference {rel[worst]:.3e} ({worst})")
-    if not (loss_rel <= 1e-4 and rel[worst] <= 1e-3):
+        f"{loss_rel:.3e}; gradients of {len(g_h)} leaves, worst relative difference in norm "
+        f"{g_rel[g_worst]:.3e} ({g_worst}, |g_cpu| {float(g_h[g_worst].norm()):.3e}), median "
+        f"{float(np.median(list(g_rel.values()))):.3e}; max relative parameter difference "
+        f"{rel[worst]:.3e} ({worst})")
+    if not (loss_rel <= 1e-4 and g_rel[g_worst] <= 1e-4 and rel[worst] <= 1e-3):
         raise SystemExit("the card's train step disagrees with the CPU's")
 
 

@@ -29,7 +29,6 @@ from mvc_tpu_torch.config import (
     DecoderConfig,
     ReconstructorConfig,
 )
-from mvc_tpu_torch.models import attention as attn
 from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
 from mvc_tpu_torch.models import reconstructor as rec
@@ -84,109 +83,29 @@ def dual_greedy_tokens_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: De
     return tokens
 
 
-def _dual_tf_hoisted_hiddens(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats, captions,
-                             feat_mask, dtype, v_keys, a_keys):
-    """Both decoders under full teacher forcing with the hoisted GEMMs, in
-    one step loop (``mvc_tpu/models/captioning.py:95``): returns (v_hids,
-    a_hids), each [L-1, B, H] f32, without the vocab projections."""
-    L, B = captions.shape
-    fed = dec._fed_tokens(captions)
-
-    def prep(params, cfg, feats):
-        E = cfg.embedding_size
-        wi = params["rnn"]["wi"]
-        gi = (params["embedding"]["table"][fed].to(dtype) @ wi[:E].to(dtype)
-              + params["rnn"]["bi"].to(dtype))
-        factored = dec._train_factored(B, feats.shape[1], feats.shape[2], wi.shape[1], L)
-        P = feats @ wi[E:].to(dtype) if factored else None
-        return gi, P, wi[E:].to(dtype)
-
-    streams = [(v_params, v_cfg, v_feats, v_keys, *prep(v_params, v_cfg, v_feats)),
-               (a_params, a_cfg, a_feats, a_keys, *prep(a_params, a_cfg, a_feats))]
-    states = [rnn.init_state(c.rnn_type, B, c.rnn_hidden_size, dtype, v_feats.device)
-              for c in (v_cfg, a_cfg)]
-    hids = ([], [])
-    for t in range(L - 1):
-        for d, (params, cfg, feats, keys, gi_all, P, wi_ctx) in enumerate(streams):
-            h = rnn.state_hidden(cfg.rnn_type, states[d])
-            if P is not None:
-                weights = attn.attention_weights(params["attention"], h, keys, feat_mask)
-                gi = gi_all[t] + torch.einsum("bt,bth->bh", weights, P)
-            else:
-                context, _ = attn.attend(params["attention"], h, feats, keys=keys,
-                                         mask=feat_mask)
-                gi = gi_all[t] + context.to(dtype) @ wi_ctx
-            _, states[d] = rnn.rnn_step_pre(params["rnn"], cfg.rnn_type, gi, states[d])
-            hids[d].append(rnn.state_hidden(cfg.rnn_type, states[d]).float())
-    return torch.stack(hids[0]), torch.stack(hids[1])
-
-
-def _dual_free_run(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats, v_keys, a_keys, gold,
-                   tf_v, tf_a, feat_mask, dtype, keep_outputs):
-    """Both decoders' generic loops in one: each feeds its own gold token or
-    argmax by its own coins.  Returns (v_outs, v_hids, a_outs, a_hids),
-    each [L-1, B, *] (outputs None unless ``keep_outputs``)."""
-    B = v_feats.shape[0]
-    cfgs, params = (v_cfg, a_cfg), (v_params, a_params)
-    feats, keys, coins = (v_feats, a_feats), (v_keys, a_keys), (tf_v, tf_a)
-    states = [rnn.init_state(c.rnn_type, B, c.rnn_hidden_size, dtype, v_feats.device)
-              for c in cfgs]
-    prev = [torch.full((B,), SOS_ID, dtype=torch.long, device=v_feats.device)] * 2
-    outs = [[torch.zeros((0, B, c.output_size), device=v_feats.device)] for c in cfgs]
-    hids = [[torch.zeros((0, B, c.rnn_hidden_size), device=v_feats.device)] for c in cfgs]
-    for t in range(1, gold.shape[0]):
-        for d in range(2):
-            logp, states[d], _ = dec.decoder_step(params[d], cfgs[d], prev[d], states[d],
-                                                  feats[d], keys[d], feat_mask, dtype)
-            prev[d] = gold[t].long() if bool(coins[d][t]) else torch.argmax(logp, dim=-1)
-            if keep_outputs:
-                outs[d].append(logp[None])
-            hids[d].append(rnn.state_hidden(cfgs[d].rnn_type, states[d]).float()[None])
-    cat = [torch.cat(x) for x in (outs[0], hids[0], outs[1], hids[1])]
-    if not keep_outputs:
-        cat[0] = cat[2] = None
-    return tuple(cat)
-
-
-def _dual_operands(v_params, a_params, visual, audio, dtype):
-    v_feats, a_feats = visual.to(dtype), audio.to(dtype)
-    return (v_feats, a_feats, attn.precompute_keys(v_params["attention"], v_feats),
-            attn.precompute_keys(a_params["attention"], a_feats))
-
-
-def _dual_coins(teacher_forcing_ratio, L, gen):
-    """Each decoder's own coins, the visual decoder's drawn first."""
+def _shared_gen(teacher_forcing_ratio: float, gen: Optional[torch.Generator]):
+    """The one generator both decoders draw their coins from, the visual
+    decoder's first (seeded 0 when None)."""
     if gen is None and teacher_forcing_ratio > 0:
         gen = torch.Generator().manual_seed(0)
-    return (dec.teacher_forcing_coins(teacher_forcing_ratio, L, gen),
-            dec.teacher_forcing_coins(teacher_forcing_ratio, L, gen))
+    return gen
 
 
 def dual_decode_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderConfig,
                       visual: torch.Tensor, audio: torch.Tensor,
                       captions: Optional[torch.Tensor], teacher_forcing_ratio: float,
                       gen: Optional[torch.Generator], feat_mask: Optional[torch.Tensor],
-                      dtype=torch.float32, max_caption_len: Optional[int] = None):
-    """Both decoders stepped in one loop (``mvc_tpu/models/captioning.py:188``),
+                      dtype=torch.float32, max_caption_len: int = 30):
+    """Both decoders' ``decoder.decode`` (``mvc_tpu/models/captioning.py:188``),
     each with its own teacher-forcing coins, feeding its own argmax when not
     forced; ratio >= 1 takes the hoisted path.  Returns (v_outputs,
     v_hiddens, a_outputs, a_hiddens), each [L, B, *], row 0 zero."""
-    B = visual.shape[0]
-    L = int(captions.shape[0]) if captions is not None else int(max_caption_len)
-    v_feats, a_feats, v_keys, a_keys = _dual_operands(v_params, a_params, visual, audio, dtype)
-    if captions is not None and teacher_forcing_ratio >= 1.0 and L > 1:
-        v_h, a_h = _dual_tf_hoisted_hiddens(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
-                                            captions, feat_mask, dtype, v_keys, a_keys)
-        v_o, a_o = dec._project(v_params, v_h, dtype), dec._project(a_params, a_h, dtype)
-    else:
-        tf_v, tf_a = _dual_coins(teacher_forcing_ratio if captions is not None else 0.0, L, gen)
-        gold = captions if captions is not None else torch.zeros(
-            (L, B), dtype=torch.long, device=visual.device)
-        v_o, v_h, a_o, a_h = _dual_free_run(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
-                                            v_keys, a_keys, gold, tf_v, tf_a, feat_mask, dtype,
-                                            True)
-    return (dec._pad0(v_o, v_cfg.output_size), dec._pad0(v_h, v_cfg.rnn_hidden_size),
-            dec._pad0(a_o, a_cfg.output_size), dec._pad0(a_h, a_cfg.rnn_hidden_size))
+    gen = _shared_gen(teacher_forcing_ratio, gen)
+    v_o, v_h = dec.decode(v_params, v_cfg, visual, captions, max_caption_len,
+                          teacher_forcing_ratio, gen, feat_mask, dtype)
+    a_o, a_h = dec.decode(a_params, a_cfg, audio, captions, max_caption_len,
+                          teacher_forcing_ratio, gen, feat_mask, dtype)
+    return v_o, v_h, a_o, a_h
 
 
 def dual_decode_hiddens(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderConfig,
@@ -197,17 +116,11 @@ def dual_decode_hiddens(v_params, a_params, v_cfg: DecoderConfig, a_cfg: Decoder
     the trajectories of ``dual_decode_fused`` without stacking either
     decoder's [L, B, V] log-probs.  Returns (v_hiddens, a_hiddens), each
     [L, B, H] f32, row 0 zero."""
-    L = int(captions.shape[0])
-    v_feats, a_feats, v_keys, a_keys = _dual_operands(v_params, a_params, visual, audio, dtype)
-    if teacher_forcing_ratio >= 1.0 and L > 1:
-        v_h, a_h = _dual_tf_hoisted_hiddens(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
-                                            captions, feat_mask, dtype, v_keys, a_keys)
-    else:
-        tf_v, tf_a = _dual_coins(teacher_forcing_ratio, L, gen)
-        _, v_h, _, a_h = _dual_free_run(v_params, a_params, v_cfg, a_cfg, v_feats, a_feats,
-                                        v_keys, a_keys, captions, tf_v, tf_a, feat_mask, dtype,
-                                        False)
-    return dec._pad0(v_h, v_cfg.rnn_hidden_size), dec._pad0(a_h, a_cfg.rnn_hidden_size)
+    gen = _shared_gen(teacher_forcing_ratio, gen)
+    return (dec.decode_hiddens(v_params, v_cfg, visual, captions, teacher_forcing_ratio, gen,
+                               feat_mask, dtype),
+            dec.decode_hiddens(a_params, a_cfg, audio, captions, teacher_forcing_ratio, gen,
+                               feat_mask, dtype))
 
 
 def captions_from_tokens(vocab, tokens) -> List[str]:

@@ -370,6 +370,24 @@ def test_optimizer_matches_make_optimizer_with_a_midway_lr_change():
         again.load_state_dict({"not": "ours"})
 
 
+def test_optimizer_without_amsgrad_matches_make_optimizer():
+    rng = np.random.default_rng(8)
+    params = {"w": rng.normal(size=(7, 3)).astype(np.float32)}
+    cfg = JaxTrainerConfig(lr=1e-2, amsgrad=False)
+    jtx = jopt.make_optimizer(cfg)
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jtx.init(jp)
+    tp = from_numpy_tree(params)
+    topt_ = topt.make_optimizer(TrainerConfig(lr=1e-2, amsgrad=False), tp)
+    for _ in range(4):
+        g = (rng.normal(size=(7, 3)) * 4).astype(np.float32)
+        upd, js = jtx.update({"w": jnp.asarray(g)}, js, jp)
+        jp = jax.tree.map(lambda p, u: p + u, jp, upd)
+        tp["w"].grad = torch.from_numpy(g)
+        topt_.step()
+    _close_trees(to_numpy_tree(tp), _np(jp), rtol=1e-6, atol=1e-8)
+
+
 @pytest.mark.parametrize("mode", ["max", "min"])
 def test_plateau_scheduler_matches_jax(mode):
     j = jopt.PlateauScheduler(lr=1e-3, patience=1, mode=mode)
