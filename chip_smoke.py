@@ -36,6 +36,16 @@ its own failure:
    1-epoch one through ``beam.cu`` (each count covers its fit; the eval
    captions held against the plain version's decode of the trained
    params); the host data side alone; the train step's time and parts
+7. the rest of the RNN trainer and service on the same tree: one train
+   step of ``AVCaptioning`` with a global reconstructor (F=2176) card vs
+   CPU, its 2-epoch fit whose evals decode through ``greedy.cu`` and a
+   1-epoch one through ``beam.cu`` with one decoder; the
+   dual fit of 6 again from the device feature cache (per-step losses
+   against 6's); int8 feature transfer (one batch bit for bit card vs CPU,
+   a 1-epoch fit); bf16 Adam moments (a 1-epoch fit, half the moment
+   bytes, the step's parts); dual direct serving over the bf16 and int8
+   wires; ``python -m mvc_tpu_torch.cli.predict_captions`` in direct and
+   beam mode on the cached fit's checkpoint
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -45,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -199,7 +210,6 @@ def phase_timers(card, label, name, lib, args, dtype, device):
 def sass_bodies(lib_path):
     """{kernel name: sha256 of its SASS} of a built library, by cuobjdump."""
     import hashlib
-    import os
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -340,10 +350,10 @@ def staggered_eos(bm, params, feats, mask, cells):
     raise SystemExit("no EOS lift makes the clips of one cluster stop at different steps")
 
 
-def serve(model, params, vocab, device, mode, label=""):
+def serve(model, params, vocab, device, mode, label="", transfer="f32"):
     from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
 
-    tag = f"{label}{mode}"
+    tag = f"{label}{mode}" + ("" if transfer == "f32" else f" over the {transfer} wire")
     rng = np.random.default_rng(0)
 
     def clip():
@@ -354,7 +364,7 @@ def serve(model, params, vocab, device, mode, label=""):
     singles = [clip() for _ in range(24)]
     batches = [[clip() for _ in range(12)] for _ in range(2)]
     cfg = ServiceConfig(max_batch=64, mode=mode, beam_width=W, frame_buckets=BUCKETS,
-                        max_caption_len=L)
+                        max_caption_len=L, transfer=transfer)
     svc = CaptionService(model, params, vocab, cfg, device=device)
     server = make_http_server(svc, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -460,12 +470,29 @@ def serve_over_limit(model, params, vocab, device, plain_fn):
                  "over-limit batch-mates")
 
 
-def check_served(plain_fn, requests, captions, vocab, device, mode):
+def wire_values(transfer):
+    """The float32 values a padded host batch has on the card after the
+    service's wire format: bf16 rounding, or the int8 quantize and
+    dequantize (per frame, so padding-invariant)."""
+    from mvc_tpu_torch.data.feature_cache import dequantize_int8, quantize_int8
+
+    def through(x):
+        if transfer == "bf16":
+            return x.bfloat16().float()
+        if transfer == "int8":
+            return dequantize_int8(*(torch.from_numpy(a) for a in quantize_int8(x.numpy())))
+        return x
+    return through
+
+
+def check_served(plain_fn, requests, captions, vocab, device, mode, transfer="f32"):
     """8 served captions against the plain version on the card, each at its
-    own 64-row batch and frame bucket (the kernels are padding-invariant)."""
+    own 64-row batch and frame bucket (the kernels are padding-invariant),
+    from the values the service's wire format gives the features."""
     from mvc_tpu_torch.data.dataset import _bucket
     from mvc_tpu_torch.models.captioning import captions_from_tokens
 
+    through = wire_values(transfer)
     agree = 0
     for item, cap in list(zip(requests, captions))[:8]:
         v = torch.tensor(item["visual"])
@@ -475,7 +502,7 @@ def check_served(plain_fn, requests, captions, vocab, device, mode):
         aud = torch.zeros(64, tp, 128)
         m = torch.zeros(64, tp, dtype=torch.bool)
         vis[0, :t], aud[0, :t], m[0, :t] = v, torch.tensor(item["audio"]), True
-        tok = plain_fn([vis.to(device), aud.to(device)], m.to(device))
+        tok = plain_fn([through(vis).to(device), through(aud).to(device)], m.to(device))
         agree += captions_from_tokens(vocab, tok[:1])[0] == cap
     log(f"[{mode}] served captions equal to the plain version: {agree}/8")
     if agree != 8:
@@ -552,7 +579,6 @@ def write_synthetic_msvd(root, n_train=512, n_val=128, seed=0):
     rows; the vocabulary has exactly V entries.  Returns (dataset dir,
     vocab path)."""
     import csv
-    import os
 
     from mvc_tpu_torch.data import Vocabulary
 
@@ -629,6 +655,16 @@ def dual_model(device):
     return model, model.init(torch.Generator().manual_seed(0))
 
 
+def single_model(device):
+    """``AVCaptioning`` with a global reconstructor: one decoder over
+    [audio | visual], F=2176, and an LSTM reconstructor of hidden size 2176."""
+    from mvc_tpu_torch.models import AVCaptioning
+
+    model = AVCaptioning(vocab_size=V, teacher_forcing_ratio=1.0, reconstructor_type="global",
+                         device=device)
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
 def named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k in tree for x in named_leaves(tree[k], f"{prefix}{k}/")]
@@ -647,8 +683,10 @@ class GradCapture:
         self.opt.step()
 
 
-def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
-    """(a) one train step from the same weights and batch on the card and
+def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device, make_model=dual_model,
+                           label="train a"):
+    """(a) one train step of ``make_model``'s model from the same weights
+    and batch on the card and
     on the CPU: the loss within 1e-4 relative, every gradient leaf within
     1e-4 relative in norm (||card - cpu|| / ||cpu||, before the optimizer's
     clip), and every parameter leaf after the step within 1e-3 of its
@@ -660,8 +698,8 @@ def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
     data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
     batch = next(iter(DataLoader(data, batch_size=TRAIN_B, prefetch=0)))
     out = {}
-    for dev in (device, torch.device("cpu")):
-        model, params = dual_model(dev)
+    for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        model, params = make_model(dev)
         tr = smoke_trainer("unused.ckpt")
         tr._transfer_dtype = torch.bfloat16          # fit's default transfer dtype
         step, _ = tr._build_train_step(model, cfg)
@@ -671,16 +709,16 @@ def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
         t0 = time.perf_counter()
         params, metrics = step(params, opt, b, torch.Generator().manual_seed(1))
         metrics = metrics.cpu()
-        out[dev.type] = (metrics, opt.grads,
+        out[key] = (metrics, opt.grads,
                          {k: v.detach().cpu() for k, v in named_leaves(params)},
                          time.perf_counter() - t0)
-    (m_c, g_c, p_c, s_c), (m_h, g_h, p_h, s_h) = out["cuda"], out["cpu"]
+    (m_c, g_c, p_c, s_c), (m_h, g_h, p_h, s_h) = out["card"], out["cpu"]
     loss_rel = abs(float(m_c[0]) - float(m_h[0])) / abs(float(m_h[0]))
     g_rel = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp_min(1e-30)) for k in g_h}
     rel = {k: float((p_c[k] - p_h[k]).abs().max() / p_h[k].abs().max().clamp_min(1e-30))
            for k in p_h}
     g_worst, worst = max(g_rel, key=g_rel.get), max(rel, key=rel.get)
-    log(f"[train a] one train step, same weights and batch (B={TRAIN_B}, T="
+    log(f"[{label}] one train step of {type(model).__name__}, same weights and batch (B={TRAIN_B}, T="
         f"{batch['visual'].shape[1]}, L={batch['captions'].shape[0]}): card losses "
         f"{[round(float(x), 6) for x in m_c]} ({s_c:.2f} s with warm-up), cpu "
         f"{[round(float(x), 6) for x in m_h]} ({s_h:.2f} s); loss relative difference "
@@ -720,30 +758,35 @@ def eval_agreement(tr, model, loader, vocab, generated, plain_fn, label, least):
         raise SystemExit(f"{label}: the kernel's eval captions agree on {share:.4f} < {least}")
 
 
-def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least, device):
-    """``Trainer.fit`` on the card; the kernel's launch count covers exactly
-    the fit.  Checks finite losses, CIDEr in every score, the checkpoint
-    files and the eval captions against the plain version (at least
-    ``least`` equal); returns the launch count."""
-    import os
-
+def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least, device,
+              make_model=dual_model):
+    """``Trainer.fit`` of ``make_model``'s model on the card; the kernel's
+    launch count covers exactly the fit.  Checks finite losses, CIDEr in
+    every score, the checkpoint files and the eval captions against the
+    plain version (at least ``least`` equal); returns (the launch count,
+    the trainer, its optimizer)."""
     from mvc_tpu_torch.data import get_loader
     from mvc_tpu_torch.data.dataset import video_dataset_to_video_captions_loader
 
     kw = dict(batch_size=TRAIN_B, vocab_path=vocab_path, verbose=False)
     train_loader, _ = get_loader(ds, "MSVD", split, **kw)
     val_loader, _ = get_loader(ds, "MSVD", "val", **kw)
-    model, params = dual_model(device)
+    model, params = make_model(device)
     ckpt = os.path.join(TRAIN_ROOT, "ckpt", f"{label}.ckpt")
     tr = smoke_trainer(ckpt)
     counter.launches = 0
     t0 = time.perf_counter()
-    params, _opt, hist = tr.fit(model, params, train_loader, val_loader, val_loader, cfg)
+    params, opt, hist = tr.fit(model, params, train_loader, val_loader, val_loader, cfg)
     if device.type == "cuda":
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = counter.launches
     sc = tr.summary_writer.scalars
+    if train_loader.feature_cache is not None:
+        cache = train_loader.feature_cache
+        log(f"[{card}] [train {label}] device feature cache: {cache.nbytes() / 1e6:.1f} MB "
+            f"({len(cache.row_of)} clips, T_store={cache.t_store}, "
+            f"{cache.arrays()['visual'].dtype})")
     for e in range(cfg.epochs):
         log(f"[{card}] [train {label}] epoch {e + 1}: train {hist['train_loss'][e]} val "
             f"{hist['val_loss'][e]}; {len(train_loader.dataset)} samples at "
@@ -767,7 +810,7 @@ def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least,
             loader.dataset, batch_size=cfg.batch_size, frame_buckets=tuple(cfg.frame_buckets))
         eval_agreement(tr, model, vc, vocab, tr.generated[phase, cfg.epochs],
                        lambda b: plain_fn(params, b, cfg), f"{label} {phase}", least)
-    return launches
+    return launches, tr, opt
 
 
 def train_step_work(model, params, b, t, l):
@@ -889,7 +932,8 @@ def train_step_times(card, cfg, device, t_, l_):
     flops, nbytes, n_params = train_step_work(model, params, TRAIN_B, t_, l_)
     bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
     by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    log(f"[{card}] [train d] train step f32 (no TF32), dual + global reconstructor, "
+    state = f", Adam moments in {cfg.adam_state_dtype}" if cfg.adam_state_dtype else ""
+    log(f"[{card}] [train d] train step f32 (no TF32), dual + global reconstructor{state}, "
         f"{n_params} params, B={TRAIN_B} T={t_} L={l_} V={V}: {step_ms:.4f} ms per step "
         f"(median of 20), {TRAIN_B / step_ms * 1e3:.2f} samples/s; parts (median of 20): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in part_ms.items())
@@ -899,32 +943,28 @@ def train_step_times(card, cfg, device, t_, l_):
         raise SystemExit("the timed train steps gave a loss that is not finite")
 
 
-def train_phase(card, device):
+def plain_dual_greedy(params, b, cfg):
+    """The plain version of the dual fit's direct eval decode."""
+    from mvc_tpu_torch.ops import dual_greedy as dg
+
+    return dg.dual_greedy_decode_reference([params["v_decoder"], params["a_decoder"]],
+                                           [b["visual"], b["audio"]], b["feat_mask"],
+                                           cfg.eval_max_caption_len, torch.float32,
+                                           ("LSTM", "LSTM"))
+
+
+def train_phase(card, device, ds, vocab_path):
     """6. the training slice at full width (dual model, global
     reconstructors, V=4000, B=128, f32): (a) one train step card vs CPU,
     (b) a 2-epoch fit whose evals decode through dual_greedy.cu, (c) a
     1-epoch fit on 128 clips whose evals decode through beam.cu, (d) the
     train step's times at two shapes, and the host data side alone.
-    Returns each kernel's launches during its fit."""
-    import shutil
-
+    Returns each kernel's launches during its fit and the trainer of (b)."""
     from mvc_tpu_torch.config import TrainerConfig
     from mvc_tpu_torch.ops import beam as bm
     from mvc_tpu_torch.ops import dual_greedy as dg
 
-    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
-        raise SystemExit("float32 matmuls must run without TF32")
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
-    t0 = time.perf_counter()
-    ds, vocab_path = write_synthetic_msvd(TRAIN_ROOT)
-    log(f"[train] synthetic MSVD tree (512 train, 128 val clips, T 20..40, V={V}) written in "
-        f"{time.perf_counter() - t0:.2f} s")
     cells, f32 = ("LSTM", "LSTM"), torch.float32     # the fits compute in float32
-
-    def plain_greedy(params, b, cfg):
-        return dg.dual_greedy_decode_reference([params["v_decoder"], params["a_decoder"]],
-                                               [b["visual"], b["audio"]], b["feat_mask"],
-                                               cfg.eval_max_caption_len, f32, cells)
 
     def plain_beam(params, b, cfg):
         return bm.beam_decode_reference([params["v_decoder"], params["a_decoder"]],
@@ -933,17 +973,176 @@ def train_phase(card, device):
                                         cfg.eval_beam_alpha, f32, cells)
 
     train_step_card_vs_cpu(card, TrainerConfig(batch_size=TRAIN_B), ds, vocab_path, device)
-    fit = {"dual_greedy": fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=2), ds,
-                                    vocab_path, "train", "direct", dg.dual_greedy_decode,
-                                    plain_greedy, 0.99, device),
-           "beam": fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=1, eval_mode="beam"),
-                             ds, vocab_path, "tiny", "beam", bm.beam_decode, plain_beam, 0.97,
-                             device)}
+    direct, direct_tr, _ = fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=2), ds,
+                                     vocab_path, "train", "direct", dg.dual_greedy_decode,
+                                     plain_dual_greedy, 0.99, device)
+    beam, _, _ = fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=1, eval_mode="beam"),
+                           ds, vocab_path, "tiny", "beam", bm.beam_decode, plain_beam, 0.97,
+                           device)
     host_data_times(card, ds, vocab_path, device)
     for t_, l_ in ((28, 8), (48, 16)):          # bench.py's shape, the fit's largest buckets
         train_step_times(card, TrainerConfig(batch_size=TRAIN_B), device, t_, l_)
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
-    return fit
+    return {"dual_greedy": direct, "beam": beam}, direct_tr
+
+
+# -- 7. the rest of the RNN trainer and service -------------------------------
+
+
+def fits_agree(card, a, b, label):
+    """Per-step train and val losses of two fits (the recorded scalars)
+    within 1e-4 relative; prints both fits' samples/s per epoch."""
+    worst = 0.0
+    for tag in ("train/loss", "val/loss"):
+        x, y = (np.array(t.summary_writer.scalars[tag]) for t in (a, b))
+        if x.shape != y.shape:
+            raise SystemExit(f"{label}: the fits ran {x.shape} and {y.shape} {tag} steps")
+        worst = max(worst, float(np.max(np.abs(x - y) / np.abs(y))))
+    rates = [t.summary_writer.scalars["train_epoch/samples_per_sec"] for t in (a, b)]
+    log(f"[{card}] [{label}] per-step train and val losses, worst relative difference "
+        f"{worst:.3e} over {len(a.summary_writer.scalars['train/loss'])} train steps; samples/s "
+        f"per epoch {[round(r, 2) for r in rates[0]]} against {[round(r, 2) for r in rates[1]]}")
+    if not worst <= 1e-4:
+        raise SystemExit(f"{label}: the fits' losses disagree ({worst:.3e})")
+
+
+def trace_summary(card, path, label):
+    """What a ``torch.profiler`` Chrome trace of a train loop shows: its
+    span, the card's busy time (kernels, copies and memsets, summed) and
+    busy share, and the kernels that took most of it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e["dur"] for e in device) / 1e3
+    by_name = {}
+    for e in device:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    size = f"torch.profiler trace ({os.path.getsize(path) / 1e6:.1f} MB)"
+    if not device:
+        log(f"[{card}] [{label}] {size}: span {span:.2f} ms, no device activity in the trace "
+            "(the profiler saw no CUDA events): card busy share not measured")
+        return
+    log(f"[{card}] [{label}] {size}: span {span:.2f} ms, card busy {busy:.2f} ms "
+        f"({100 * busy / span:.2f} %) in {len(device)} kernels and copies; top: "
+        + "; ".join(f"{n} {ms:.2f} ms" for n, ms in top))
+
+
+def rest_phase(card, device, ds, vocab_path, uncached_tr, serving, plain_serving):
+    """7. the rest of the RNN trainer and service at full width: (a) one
+    train step of ``AVCaptioning`` + a global reconstructor card vs CPU,
+    (b) its 2-epoch fit whose evals decode through greedy.cu (epoch 1
+    traced) and a 1-epoch fit on 128 clips through beam.cu, (c) the dual
+    fit of phase 6 (b) again from the device feature cache, (d) int8
+    feature transfer, (e) bf16 Adam moments, (f) dual direct serving over
+    the bf16 and int8 wires, (g) ``cli.predict_captions`` in direct and
+    beam mode.  Returns each kernel's launches by path."""
+    from mvc_tpu_torch.cli import predict_captions
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.data.dataset import VideoCaptioningDataset
+    from mvc_tpu_torch.data.loader import DataLoader
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import greedy as gr
+    def plain_single(params, b, cfg):
+        return gr.greedy_decode_reference(params["decoder"],
+                                          torch.cat([b["audio"], b["visual"]], dim=-1),
+                                          b["feat_mask"], cfg.eval_max_caption_len,
+                                          torch.float32, "LSTM")
+
+    def plain_single_beam(params, b, cfg):
+        return bm.beam_decode_reference([params["decoder"]],
+                                        [torch.cat([b["audio"], b["visual"]], dim=-1)],
+                                        b["feat_mask"], cfg.eval_max_caption_len,
+                                        cfg.eval_beam_width, cfg.eval_beam_alpha, torch.float32,
+                                        ("LSTM",))
+
+    launches = {}
+    train_step_card_vs_cpu(card, TrainerConfig(batch_size=TRAIN_B), ds, vocab_path, device,
+                           single_model, "rest a")
+    prof_dir = os.path.join(TRAIN_ROOT, "profile")
+    os.environ["MVC_PROFILE_DIR"] = prof_dir          # the trainer traces epoch 1
+    try:
+        launches["greedy train fit direct eval (single)"], _, _ = fit_phase(
+            card, TrainerConfig(batch_size=TRAIN_B, epochs=2), ds, vocab_path, "train",
+            "single", gr.greedy_decode, plain_single, 0.99, device, make_model=single_model)
+    finally:
+        del os.environ["MVC_PROFILE_DIR"]
+    trace_summary(card, os.path.join(prof_dir, "train_epoch1.trace.json"),
+                  "rest b single fit, epoch 1 (traced)")
+    launches["beam train fit beam eval (single)"], _, _ = fit_phase(
+        card, TrainerConfig(batch_size=TRAIN_B, epochs=1, eval_mode="beam"), ds, vocab_path,
+        "tiny", "single beam", bm.beam_decode, plain_single_beam, 0.97, device,
+        make_model=single_model)
+
+    cached, cached_tr, _ = fit_phase(
+        card, TrainerConfig(batch_size=TRAIN_B, epochs=2, device_feature_cache=True), ds,
+        vocab_path, "train", "cached", dg.dual_greedy_decode, plain_dual_greedy, 0.99, device)
+    launches["dual_greedy train fit direct eval (cached)"] = cached
+    fits_agree(card, cached_tr, uncached_tr, "rest c cached against uncached (phase 6 b)")
+
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    batch = next(iter(DataLoader(data, batch_size=TRAIN_B, prefetch=0)))
+    tr = smoke_trainer("unused.ckpt")
+    tr._transfer_int8 = True
+    on_card, on_cpu = tr._put_batch(batch, device), tr._put_batch(batch, torch.device("cpu"))
+    same = {k: on_card[k].dtype == torch.float32 and torch.equal(on_card[k].cpu(), on_cpu[k])
+            for k in ("audio", "visual")}
+    log(f"[rest d] int8 transfer of one batch ({tuple(batch['visual'].shape)} visual): the "
+        f"card's dequantized float32 features equal the CPU's bit for bit: {same}")
+    if not all(same.values()):
+        raise SystemExit("the int8 batch on the card differs from the CPU's")
+    launches["dual_greedy train fit direct eval (int8)"], _, _ = fit_phase(
+        card, TrainerConfig(batch_size=TRAIN_B, epochs=1, transfer_dtype="int8"), ds,
+        vocab_path, "tiny", "int8", dg.dual_greedy_decode, plain_dual_greedy, 0.99, device)
+
+    cfg = TrainerConfig(batch_size=TRAIN_B, epochs=1, adam_state_dtype="bfloat16")
+    launches["dual_greedy train fit direct eval (bf16 Adam state)"], _, opt = fit_phase(
+        card, cfg, ds, vocab_path, "tiny", "bf16 state", dg.dual_greedy_decode,
+        plain_dual_greedy, 0.99, device)
+    n = sum(p.numel() for p in opt.leaves)
+    got, f32_bytes = opt.inner.moment_bytes(), 3 * 4 * n
+    log(f"[rest e] Adam moments in bf16: {got} bytes for {n} parameters, against {f32_bytes} "
+        f"in float32 ({got / f32_bytes:.3f})")
+    if got * 2 != f32_bytes:
+        raise SystemExit("the bf16 moments do not take half the float32 bytes")
+    for state in (None, "bfloat16", "bfloat16", None):       # in turns, at bench.py's shape
+        train_step_times(card, TrainerConfig(batch_size=TRAIN_B, adam_state_dtype=state),
+                         device, 28, 8)
+
+    model, params, vocab = serving
+    for transfer in ("bf16", "int8"):
+        dg.dual_greedy_decode.launches = 0
+        requests, captions = serve(model, params, vocab, device, "direct", "dual ", transfer)
+        launches[f"dual_greedy serve dual direct ({transfer} wire)"] = n_l = \
+            dg.dual_greedy_decode.launches
+        if n_l < 1:
+            raise SystemExit(f"serving over the {transfer} wire never launched dual_greedy")
+        check_served(plain_serving, requests, captions, vocab, device, f"direct {transfer}",
+                     transfer)
+
+    out_dir = os.path.join(TRAIN_ROOT, "results")
+    val = VideoCaptioningDataset(ds, "MSVD", "val", vocab_path=vocab_path, verbose=False)
+    n_val = len({vid for vid, _ in val.metadata})
+    for mode, counter in (("direct", dg.dual_greedy_decode), ("beam", bm.beam_decode)):
+        counter.launches = 0
+        t0 = time.perf_counter()
+        rows = predict_captions.main([
+            "--data_root", os.path.dirname(ds), "--checkpoint",
+            os.path.join(TRAIN_ROOT, "ckpt", "cached_last.ckpt"), "--splits", "val",
+            "--mode", mode, "--reconstructor", "global", "--out_dir", out_dir,
+            "--device", str(device)])
+        name = f"{'dual_greedy' if mode == 'direct' else 'beam'} predict_captions {mode}"
+        launches[name] = counter.launches
+        with open(os.path.join(out_dir, f"captions_cached_last_val_{mode}.csv")) as f:
+            n_rows = sum(1 for _ in f) - 1
+        log(f"[{card}] [rest g] predict_captions --mode {mode} in "
+            f"{time.perf_counter() - t0:.2f} s: {n_rows} captions, {counter.launches} launches, "
+            f"scores {json.dumps({k: v for k, v in rows[0].items()})}")
+        if counter.launches < 1 or n_rows != n_val:
+            raise SystemExit(f"predict_captions --mode {mode} did not caption the val split "
+                             "through its kernel")
+    return launches
 
 
 def main() -> int:
@@ -1252,8 +1451,20 @@ def main() -> int:
     # other kernel's timing
     beam_tiles(bm, dc, card, decoders, [vf, af], mask, cells, s_dec, sf, device)
 
-    # -- 6. training
-    fit_launches = train_phase(card, device)
+    # -- 6. training, 7. the rest of the trainer and service, on one synthetic tree
+    import shutil
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise SystemExit("float32 matmuls must run without TF32")
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds, vocab_path = write_synthetic_msvd(TRAIN_ROOT)
+    log(f"[train] synthetic MSVD tree (512 train, 128 val clips, T 20..40, V={V}) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fit_launches, direct_tr = train_phase(card, device, ds, vocab_path)
+    rest_launches = rest_phase(card, device, ds, vocab_path, direct_tr, (model, params, vocab),
+                               lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L))
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [
         {"name": "dual_greedy_decode", "route": "cuda",
@@ -1263,7 +1474,9 @@ def main() -> int:
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": None,
          "launches_by_path": {"serve dual direct": g_launches,
-                              "train fit direct eval": fit_launches["dual_greedy"]}},
+                              "train fit direct eval": fit_launches["dual_greedy"],
+                              **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
+                                 if k.startswith("dual_greedy ")}}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
@@ -1271,14 +1484,18 @@ def main() -> int:
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
          "library_ms": None,
          "launches_by_path": {"serve dual beam": b_launches, "serve single beam": sb_launches,
-                              "train fit beam eval": fit_launches["beam"]}},
+                              "train fit beam eval": fit_launches["beam"],
+                              **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
+                                 if k.startswith("beam ")}}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",
          "launches": s_launches, "max_abs_err": s_err,
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None,
-         "launches_by_path": {"serve single direct": s_launches}},
+         "launches_by_path": {"serve single direct": s_launches,
+                              **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
+                                 if k.startswith("greedy ")}}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

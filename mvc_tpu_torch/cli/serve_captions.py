@@ -2,7 +2,8 @@
 
     python -m mvc_tpu_torch.cli.serve_captions --dataset MSVD \\
         --checkpoint checkpoints/MSVD/..._best.ckpt [--port 8000] [--max_batch 64] \\
-        [--mode direct|beam] [--beam_width 5] [--beam_alpha 0.0] [--device cuda|cpu]
+        [--mode direct|beam] [--beam_width 5] [--beam_alpha 0.0] \\
+        [--transfer f32|bf16|int8] [--device cuda|cpu]
 
 The port of ``scripts/serve_captions.py``: the same flags plus ``--device``.
 Reads checkpoints written by this package's or the JAX package's
@@ -36,7 +37,7 @@ def main(argv=None):
     ap.add_argument("--max_batch", default=64, type=int)
     ap.add_argument("--max_wait_ms", default=5.0, type=float)
     ap.add_argument("--transfer", default="f32", choices=["f32", "bf16", "int8"],
-                    help="feature H2D wire format (only f32 is ported)")
+                    help="feature host-to-device wire format (ServiceConfig.transfer)")
     ap.add_argument("--pipeline_depth", default=2, type=int)
     ap.add_argument("--frame_buckets", nargs="+", type=int, default=[8, 16, 32, 48, 64])
     ap.add_argument("--host", default="127.0.0.1")

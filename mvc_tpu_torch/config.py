@@ -63,10 +63,7 @@ class ReconstructorConfig:
 @dataclass
 class TrainerConfig:
     """Training hyperparameters, with the JAX package's defaults
-    (``mvc_tpu/config.py:84-162``).  ``device_feature_cache=True``,
-    ``transfer_dtype="int8"`` and a non-None ``adam_state_dtype`` name
-    features the port does not have yet: ``Trainer.fit`` raises
-    ``NotImplementedError`` for them."""
+    (``mvc_tpu/config.py:84-162``)."""
 
     batch_size: int = 128
     epochs: int = 50
@@ -92,10 +89,12 @@ class TrainerConfig:
     seed: int = 0
     compute_dtype: str = "float32"     # "float32" | "bfloat16"
     # Features are cast to this dtype on the host before the copy to the
-    # card; None keeps float32.
+    # card ("int8": quantized per frame, dequantized on the card); None
+    # keeps float32.  With the feature cache, the cache's storage dtype.
     transfer_dtype: Optional[str] = "bfloat16"
     # Copy the next batch to the card on a background thread.
     device_prefetch: bool = True
+    # Every clip's features on the card once; steps send ids and rows.
     device_feature_cache: bool = False
     frame_buckets: Sequence[int] = (8, 16, 32, 48, 64)
     caption_buckets: Sequence[int] = (12, 16, 20, 26, 34)
@@ -103,6 +102,7 @@ class TrainerConfig:
     # (training/fused_loss.py); the materializing path is taken under
     # compat_batch_axis_entropy.
     fused_loss: bool = True
+    # "bfloat16": store the Adam moments in bf16 (the math stays float32)
     adam_state_dtype: Optional[str] = None
     # Mask attention and the reconstruction losses over padded frames.
     mask_padded_features: bool = True

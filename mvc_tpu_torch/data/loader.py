@@ -1,5 +1,6 @@
 """Host-side batch loaders (``mvc_tpu/data/loader.py``), single process:
-numpy-seeded epoch order, bucketed collation and a prefetch thread that
+numpy-seeded epoch order, bucketed collation (or, with a device feature
+cache attached, caption ids and cache rows only) and a prefetch thread that
 overlaps feature loading with the step on the card."""
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from mvc_tpu_torch.data.dataset import (
     collate_av_batch,
     collate_eval_batch,
 )
+from mvc_tpu_torch.data.feature_cache import collate_index_batch
 
 
 class _Prefetcher:
@@ -74,6 +76,13 @@ class DataLoader:
         self.bucket_by_length = bucket_by_length
         self._rng = np.random.default_rng(seed)
         self._lengths = None
+        self.feature_cache = None
+
+    def attach_feature_cache(self, cache) -> None:
+        """Switch to the index path: batches carry caption ids and cache
+        rows only; the features stay on the device
+        (``data.feature_cache.DeviceFeatureCache``)."""
+        self.feature_cache = cache
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -111,11 +120,20 @@ class DataLoader:
         order = self._epoch_order()
         bs = self.batch_size
         ends = len(order) if not self.drop_last else (len(order) // bs) * bs
+        cache = self.feature_cache
         for start in range(0, ends, bs):
-            items = [self.dataset[int(i)] for i in order[start:start + bs]]
+            idx = order[start:start + bs]
+            pad_to = bs if self.pad_partial_batches else None
+            if cache is not None:
+                yield collate_index_batch(cache.caption_rows[idx],
+                                          [cache.caption_ids[int(i)] for i in idx],
+                                          cache.lengths_np, caption_buckets=self.caption_buckets,
+                                          frame_buckets=self.frame_buckets, pad_batch_to=pad_to,
+                                          t_store=cache.t_store)
+                continue
+            items = [self.dataset[int(i)] for i in idx]
             yield collate_av_batch(items, frame_buckets=self.frame_buckets,
-                                   caption_buckets=self.caption_buckets,
-                                   pad_batch_to=bs if self.pad_partial_batches else None)
+                                   caption_buckets=self.caption_buckets, pad_batch_to=pad_to)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.prefetch > 0:

@@ -1,7 +1,7 @@
 """Captioners (``mvc_tpu/models/captioning.py``): ``AVCaptioning`` (one
-decoder over the concatenated ``[audio | visual]`` features, serving only)
-and ``AVCaptioningDual`` (per-modality decoders whose log-probs are summed,
-with reconstructors and the training forwards), each with direct- and
+decoder over the concatenated ``[audio | visual]`` features) and
+``AVCaptioningDual`` (per-modality decoders whose log-probs are summed),
+each with its reconstructors, the training forwards and direct- and
 beam-mode ``predict_tokens``; the plain composition
 ``dual_greedy_tokens_fused``, the dual training decodes
 (``dual_decode_fused`` / ``dual_decode_hiddens``) and
@@ -131,21 +131,24 @@ def captions_from_tokens(vocab, tokens) -> List[str]:
     return [vocab.decode_indexes(row[1:]) for row in tokens]
 
 
-def _require_no_reconstructor(reconstructor_type: str) -> None:
-    if reconstructor_type != "none":
-        raise NotImplementedError(
-            "the single model's reconstructor and training are not ported yet "
-            "(ROADMAP.md); serving reads checkpointed reconstructor leaves as they are")
+def _check_reconstructor_type(reconstructor_type: str) -> None:
+    if reconstructor_type not in ("none", "global", "local"):
+        raise ValueError(f"reconstructor_type must be none, global or local, "
+                         f"got {reconstructor_type!r}")
 
 
 class AVCaptioning:
     """Single-stream concat-fusion captioner: one decoder over the
-    ``[audio | visual]`` features (F=2176 at the reference widths)."""
+    ``[audio | visual]`` features (F=2176 at the reference widths) and one
+    reconstructor of the concatenated features, whose output is split back
+    at the audio width, audio first."""
 
     def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
                  reconstructor_type: str = "none",
                  decoder_config: Optional[DecoderConfig] = None,
+                 reconstructor_config: Optional[ReconstructorConfig] = None,
                  dtype=torch.float32, device="cuda"):
+        _check_reconstructor_type(reconstructor_type)
         self.vocab_size = vocab_size
         self.teacher_forcing_ratio = teacher_forcing_ratio
         self.reconstructor_type = reconstructor_type
@@ -153,13 +156,56 @@ class AVCaptioning:
         self.device = resolve_device(device)
         self.decoder_config = (decoder_config or SINGLE_DECODER_CONFIG).replace(
             output_size=vocab_size)
+        # overwritten as the JAX model does (mvc_tpu/models/captioning.py:424-428)
+        self.reconstructor_config = (reconstructor_config or ReconstructorConfig()).replace(
+            type=reconstructor_type, decoder_size=self.decoder_config.rnn_hidden_size,
+            hidden_size=self.decoder_config.in_feature_size)
 
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen`` (a CPU generator), on the model's
-        device.  The single model's reconstructors are not ported yet."""
-        _require_no_reconstructor(self.reconstructor_type)
-        return {"decoder": dec.init_decoder(gen, self.decoder_config, device=self.device),
-                "reconstructor": None}
+        device, drawn in the order decoder, reconstructor."""
+        d = self.device
+        return {"decoder": dec.init_decoder(gen, self.decoder_config, device=d),
+                "reconstructor": rec.init_reconstructor(gen, self.reconstructor_config,
+                                                        device=d)}
+
+    def _split(self, recons, a_dim: int):
+        if recons is None:
+            return None, None
+        return recons[:, :, :a_dim], recons[:, :, a_dim:]
+
+    def forward(self, params, audio: torch.Tensor, visual: torch.Tensor,
+                captions: torch.Tensor, gen: Optional[torch.Generator] = None,
+                teacher_forcing_ratio: Optional[float] = None,
+                feat_mask: Optional[torch.Tensor] = None):
+        """(outputs [L, B, V] log-probs, audio_recons, visual_recons)
+        (``mvc_tpu/models/captioning.py:444``): the decoder over
+        ``[audio | visual]``, its teacher-forcing coins drawn from ``gen``,
+        then the reconstruction split at the audio width."""
+        tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
+        features = torch.cat([audio, visual], dim=-1)
+        outputs, hiddens = dec.decode(params["decoder"], self.decoder_config, features, captions,
+                                      captions.shape[0], tf, gen, feat_mask,
+                                      self.dtype)
+        recons = rec.reconstruct(params["reconstructor"], self.reconstructor_config, hiddens,
+                                 outputs, captions, feat_len=features.shape[1], dtype=self.dtype)
+        return (outputs, *self._split(recons, audio.shape[2]))
+
+    def forward_hiddens(self, params, audio: torch.Tensor, visual: torch.Tensor,
+                        captions: torch.Tensor, gen: Optional[torch.Generator] = None,
+                        teacher_forcing_ratio: Optional[float] = None,
+                        feat_mask: Optional[torch.Tensor] = None):
+        """The fused-loss forward (``mvc_tpu/models/captioning.py:472``): the
+        trajectory and reconstruction of ``forward`` without the [L, B, V]
+        stack.  Returns ((hiddens,), (out,) vocab projection, audio_recons,
+        visual_recons)."""
+        tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
+        features = torch.cat([audio, visual], dim=-1)
+        hiddens = dec.decode_hiddens(params["decoder"], self.decoder_config, features, captions,
+                                     tf, gen, feat_mask, self.dtype)
+        recons = rec.reconstruct(params["reconstructor"], self.reconstructor_config, hiddens,
+                                 None, captions, feat_len=features.shape[1], dtype=self.dtype)
+        return ((hiddens,), (params["decoder"]["out"],), *self._split(recons, audio.shape[2]))
 
     def predict_tokens(self, params, audio: torch.Tensor, visual: torch.Tensor,
                        max_caption_len: int = 30, mode: str = "direct",
@@ -232,9 +278,7 @@ class AVCaptioningDual:
                  audio_decoder_config: Optional[DecoderConfig] = None,
                  reconstructor_config: Optional[ReconstructorConfig] = None,
                  dtype=torch.float32, device="cuda"):
-        if reconstructor_type not in ("none", "global", "local"):
-            raise ValueError(f"reconstructor_type must be none, global or local, "
-                             f"got {reconstructor_type!r}")
+        _check_reconstructor_type(reconstructor_type)
         self.vocab_size = vocab_size
         self.teacher_forcing_ratio = teacher_forcing_ratio
         self.reconstructor_type = reconstructor_type

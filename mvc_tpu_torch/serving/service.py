@@ -22,7 +22,13 @@
   ``deadline_ms`` passes before it reaches a batch fails with
   ``DeadlineExceeded``.
 
-Not ported yet: the ``bf16``/``int8`` wire formats and the mesh argument.
+- **Wire formats.** ``transfer`` picks the features' host-to-device format:
+  ``"f32"``; ``"bf16"`` (cast on the host, round to nearest even; the
+  decode casts its inputs to the model dtype on entry, as the JAX service
+  relies on); ``"int8"`` (``data.feature_cache.quantize_int8`` on the host,
+  dequantized to float32 on the device before ``predict_tokens``).
+
+Not ported yet: the mesh argument.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from mvc_tpu_torch.data.dataset import _bucket
+from mvc_tpu_torch.data.feature_cache import dequantize_int8, quantize_int8
 from mvc_tpu_torch.models.captioning import captions_from_tokens
 from mvc_tpu_torch.ops.beam import max_width as beam_max_width
 from mvc_tpu_torch.utils.device import resolve_device
@@ -65,7 +72,8 @@ class ServiceConfig:
     # device batches in flight: 1 = launch, sync, repeat; 2 overlaps host
     # batching and the D2H copy with device compute
     pipeline_depth: int = 2
-    # feature H2D wire format; only "f32" is ported
+    # feature H2D wire format: "f32", "bf16" (half the bytes) or "int8"
+    # (a quarter, per-frame max-abs scales, dequantized on the device)
     transfer: str = "f32"
     # None = unbounded queue; else shed or evict past this many queued
     max_queue: Optional[int] = None
@@ -121,9 +129,7 @@ class CaptionService:
         self.config = config or ServiceConfig()
         if self.config.mode not in ("direct", "beam"):
             raise ValueError(f"unknown mode {self.config.mode!r}")
-        if self.config.transfer in ("bf16", "int8"):
-            raise ValueError(f"transfer={self.config.transfer!r} is not ported yet; use 'f32'")
-        if self.config.transfer != "f32":
+        if self.config.transfer not in ("f32", "bf16", "int8"):
             raise ValueError(f"unknown transfer {self.config.transfer!r}")
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -371,14 +377,26 @@ class CaptionService:
             feat_mask[i, :t] = True
         with self._lock:
             self._t_pads.add(t_pad)
+        audio_d, visual_d = (self._to_device(x) for x in (audio, visual))
         dev = self.device
         tokens = self.model.predict_tokens(
-            self.params, torch.from_numpy(audio).to(dev), torch.from_numpy(visual).to(dev),
+            self.params, audio_d, visual_d,
             max_caption_len=cfg.max_caption_len, mode=cfg.mode,
             beam_alpha=cfg.beam_alpha, beam_width=cfg.beam_width,
             feat_mask=torch.from_numpy(feat_mask).to(dev),
             stop_at_all_eos=cfg.stop_at_all_eos)
         self._completions.put((tokens, batch))
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """One padded feature batch through the configured wire format."""
+        dev = self.device
+        if self.config.transfer == "int8":
+            q, scale = quantize_int8(x)
+            return dequantize_int8(torch.from_numpy(q).to(dev), torch.from_numpy(scale).to(dev))
+        t = torch.from_numpy(x)
+        if self.config.transfer == "bf16":
+            t = t.to(torch.bfloat16)
+        return t.to(dev)
 
     def _complete(self, tokens_dev: torch.Tensor, batch: List[_Request]) -> None:
         n = len(batch)

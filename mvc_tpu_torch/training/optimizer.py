@@ -13,6 +13,11 @@ takes them in float64 (at step 1, 1 - 0.999 is 1.0e-3 there and
 the JAX chain's by up to 6e-6 relative, more than the parity test's rtol
 of 1e-6.
 
+With ``state_dtype=torch.bfloat16`` (``adam_state_dtype``, PARITY #11)
+the three moment trees are stored in bf16: each step upcasts them to
+float32, runs the same float32 math (bias corrections included) and
+rounds the new moments on store, as the JAX chain's ``state_dtype`` does.
+
 ``PlateauScheduler`` is the host-side ReduceLROnPlateau stepped on the
 validation CIDEr, with the same ``state_dict``.
 """
@@ -39,16 +44,23 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+MOMENTS = ("mu", "nu", "nu_max")
+_STATE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
+
 class ClippedAdam(torch.optim.Optimizer):
     """``make_optimizer``'s chain over a list of tensors, a few multi-tensor
     ops per step.  A leaf without a gradient steps on a zero gradient, as
     the JAX chain updates every leaf.  The learning rate is
-    ``param_groups[0]["lr"]``."""
+    ``param_groups[0]["lr"]``.  ``state_dtype`` (None: the parameter's)
+    is the dtype the moments are stored in."""
 
     def __init__(self, params, lr: float, weight_decay: float = 0.0, clip: float = 0.0,
-                 amsgrad: bool = True, betas=(0.9, 0.999), eps: float = 1e-8):
+                 amsgrad: bool = True, betas=(0.9, 0.999), eps: float = 1e-8,
+                 state_dtype=None):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay, clip=clip,
                                       amsgrad=amsgrad, betas=betas, eps=eps))
+        self.state_dtype = state_dtype
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -59,11 +71,14 @@ class ClippedAdam(torch.optim.Optimizer):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 if not self.state[p]:
-                    self.state[p].update(step=0, mu=torch.zeros_like(p), nu=torch.zeros_like(p),
-                                         nu_max=torch.zeros_like(p))
+                    self.state[p].update(step=0, **{k: torch.zeros_like(p, dtype=self.state_dtype)
+                                                    for k in MOMENTS})
                 self.state[p]["step"] += 1
             gs = [p.grad for p in ps]
-            mus, nus, maxs = ([self.state[p][k] for p in ps] for k in ("mu", "nu", "nu_max"))
+            stored = [[self.state[p][k] for p in ps] for k in MOMENTS]
+            # reduced-precision moments: the math runs on float32 copies
+            mus, nus, maxs = ([m.float() for m in ms] if self.state_dtype is not None else ms
+                              for ms in stored)
             if clip:
                 torch._foreach_clamp_min_(gs, -clip)
                 torch._foreach_clamp_max_(gs, clip)
@@ -86,7 +101,15 @@ class ClippedAdam(torch.optim.Optimizer):
             torch._foreach_add_(den, group["eps"])
             torch._foreach_addcdiv_(ps, mus, den,
                                     value=-float(np.float32(group["lr"])) / float(bc1))
+            if self.state_dtype is not None:          # round on store
+                for dst, src in zip(stored, (mus, nus, maxs)):
+                    torch._foreach_copy_(dst, src)
         return None
+
+    def moment_bytes(self) -> int:
+        """Bytes of the stored moment tensors."""
+        return sum(s[k].numel() * s[k].element_size() for s in self.state.values()
+                   for k in MOMENTS if k in s)
 
 
 class Optimizer:
@@ -97,8 +120,14 @@ class Optimizer:
         self.leaves = tree_leaves(params)
         for p in self.leaves:
             p.requires_grad_(True)
+        if cfg.adam_state_dtype not in _STATE_DTYPES:
+            raise ValueError(f"adam_state_dtype must be None or 'bfloat16', "
+                             f"got {cfg.adam_state_dtype!r}")
+        # as in the JAX chain, the state dtype applies to the AMSGrad path only
+        state_dtype = _STATE_DTYPES[cfg.adam_state_dtype] if cfg.amsgrad else None
         self.inner = ClippedAdam(self.leaves, lr=cfg.lr, weight_decay=cfg.weight_decay or 0.0,
-                                 clip=cfg.gradient_clip_value or 0.0, amsgrad=bool(cfg.amsgrad))
+                                 clip=cfg.gradient_clip_value or 0.0, amsgrad=bool(cfg.amsgrad),
+                                 state_dtype=state_dtype)
 
     @property
     def lr(self) -> float:
@@ -114,10 +143,17 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
-        """The port's own format: the optimizer's state with numpy leaves."""
+        """The port's own format: the optimizer's state with numpy leaves
+        (bf16 moments as their exact float32 values)."""
         sd = self.inner.state_dict()
-        state = {i: {k: v.detach().cpu().numpy().copy() if isinstance(v, torch.Tensor) else v
-                     for k, v in s.items()} for i, s in sd["state"].items()}
+
+        def host(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            v = v.detach().cpu()
+            return (v.float() if v.dtype == torch.bfloat16 else v).numpy().copy()
+
+        state = {i: {k: host(v) for k, v in s.items()} for i, s in sd["state"].items()}
         return {"format": STATE_FORMAT, "state": state, "param_groups": sd["param_groups"]}
 
     def load_state_dict(self, d) -> None:
@@ -127,6 +163,12 @@ class Optimizer:
         state = {int(i): {k: torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray) else v
                           for k, v in s.items()} for i, s in d["state"].items()}
         self.inner.load_state_dict({"state": state, "param_groups": d["param_groups"]})
+        sdt = self.inner.state_dtype
+        if sdt is not None:                 # torch's loader casts them to the params' dtype
+            for s in self.inner.state.values():
+                for k in MOMENTS:
+                    if k in s:
+                        s[k] = s[k].to(sdt)
 
 
 def make_optimizer(cfg: TrainerConfig, params) -> Optimizer:

@@ -1,11 +1,16 @@
 """Training and evaluation engine (``mvc_tpu/training/trainer.py``).
 
 ``Trainer.fit`` runs on ``model.device``: every batch is copied there
-(features cast on the host to ``transfer_dtype`` first), the train step is
-forward + loss + backward + the optimizer, and the per-epoch eval decodes
-with ``model.predict_tokens``, which on the card launches
-``csrc/dual_greedy.cu`` (``eval_mode="direct"``) or ``csrc/beam.cu``
-(``"beam"``).  The observable surface is the JAX trainer's: the history
+(features cast on the host to ``transfer_dtype`` first, or quantized to
+int8 and dequantized on the card), or, with ``device_feature_cache``, the
+features are on the card once and each batch sends caption ids and cache
+rows.  The train step is forward + loss + backward + the optimizer, and
+the per-epoch eval decodes with ``model.predict_tokens``, which on the card
+launches ``csrc/dual_greedy.cu`` (``AVCaptioningDual``) or
+``csrc/greedy.cu`` (``AVCaptioning``) with ``eval_mode="direct"``, and
+``csrc/beam.cu`` with ``"beam"``.  With ``MVC_PROFILE_DIR`` set, the first
+epoch's train loop is traced by ``torch.profiler`` into a Chrome trace
+there.  The observable surface is the JAX trainer's: the history
 dict's six keys, the TensorBoard tags, 10 example captions per eval, the
 checkpoint triggers (best val CIDEr -> main + ``_best``, best val loss ->
 main, ``_last`` at the end) and the ``eval_freq`` cadence.
@@ -14,6 +19,7 @@ main, ``_last`` at the end) and the ``eval_freq`` cadence.
 from __future__ import annotations
 
 import copy
+import os
 import queue
 import threading
 import time
@@ -24,6 +30,12 @@ import torch
 
 from mvc_tpu_torch.config import TrainerConfig
 from mvc_tpu_torch.data.dataset import video_dataset_to_video_captions_loader
+from mvc_tpu_torch.data.feature_cache import (
+    DeviceFeatureCache,
+    dequantize_int8,
+    gather_features,
+    quantize_int8,
+)
 from mvc_tpu_torch.evalcap import NLPScore
 from mvc_tpu_torch.training import fused_loss as fused_lib
 from mvc_tpu_torch.training import losses as loss_lib
@@ -66,16 +78,6 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _unported(cfg: TrainerConfig) -> Optional[str]:
-    if cfg.device_feature_cache:
-        return "device_feature_cache"
-    if cfg.transfer_dtype == "int8":
-        return 'transfer_dtype="int8"'
-    if cfg.adam_state_dtype is not None:
-        return "adam_state_dtype"
-    return None
-
-
 class Trainer:
     def __init__(self, checkpoint_name: str, log_dir: Optional[str] = "logs",
                  display_freq: int = 10, eval_freq: int = 10, mesh=None):
@@ -87,7 +89,9 @@ class Trainer:
         self.eval_freq = eval_freq
         self.summary_writer = _make_writer(log_dir)
         self._transfer_dtype: Optional[torch.dtype] = None
+        self._transfer_int8 = False
         self._device_prefetch = False
+        self.previous_epochs = 0
         self._meteor_synonyms = None
         self._meteor_paraphrases = None
         self._meteor_function_words = None
@@ -153,22 +157,45 @@ class Trainer:
         def eval_loss_step(params, batch, gen):
             return compute_loss(params, batch, gen, 0.0)[1]
 
+        # the feature-cache variants: the batch holds caption ids and cache
+        # rows; features and frame mask are gathered on the device
+        def with_features(batch, cache_arrays, t_pad):
+            audio, visual, feat_mask = gather_features(cache_arrays, batch["video_rows"], t_pad,
+                                                       sample_mask=batch.get("sample_mask"))
+            return dict(batch, audio=audio, visual=visual, feat_mask=feat_mask)
+
+        def train_step_cached(params, opt, batch, cache_arrays, gen, t_pad):
+            return train_step(params, opt, with_features(batch, cache_arrays, t_pad), gen)
+
+        def eval_loss_step_cached(params, batch, cache_arrays, gen, t_pad):
+            return eval_loss_step(params, with_features(batch, cache_arrays, t_pad), gen)
+
+        self._train_step_cached = train_step_cached
+        self._eval_loss_step_cached = eval_loss_step_cached
         return train_step, eval_loss_step
 
     def _put_batch(self, batch, device: torch.device):
         """Host batch -> tensors on ``device``: float32 arrays cast to the
-        transfer dtype on the host, then a pinned, non-blocking copy to the
-        card.  Lists (video ids, caption strings) stay as they are."""
+        transfer dtype on the host (int8: ``quantize_int8``'s payload and
+        scales, dequantized to float32 on the device after the copy), then
+        a pinned, non-blocking copy to the card.  Lists (video ids, caption
+        strings) and host ints (``t_pad``) stay as they are."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        if self._transfer_int8:
+            for k in ("audio", "visual"):
+                if k in arrays:
+                    arrays[k], arrays[f"{k}_scale"] = quantize_int8(arrays[k])
         out = dict(batch)
-        for k, v in batch.items():
-            if not isinstance(v, np.ndarray):
-                continue
+        for k, v in arrays.items():
             t = torch.from_numpy(v)
             if self._transfer_dtype is not None and t.dtype == torch.float32:
                 t = t.to(self._transfer_dtype)
             if device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)
             out[k] = t
+        for k in ("audio", "visual"):
+            if f"{k}_scale" in out:
+                out[k] = dequantize_int8(out[k], out.pop(f"{k}_scale"))
         if "sample_mask" in batch:
             out["_n_real"] = int(batch["sample_mask"].sum())
         return out
@@ -235,11 +262,11 @@ class Trainer:
         ``checkpoint_name`` when there is one); returns (params, optimizer,
         history).  The caller's tensors are not modified."""
         cfg = train_config
-        unported = _unported(cfg)
-        if unported:
-            raise NotImplementedError(f"{unported} is not ported yet (ROADMAP.md)")
         td = cfg.transfer_dtype
-        self._transfer_dtype = _DTYPES[td] if td else None
+        if td not in (None, "int8", *_DTYPES):
+            raise ValueError(f"transfer_dtype must be None, float32, bfloat16 or int8, got {td!r}")
+        self._transfer_int8 = td == "int8"
+        self._transfer_dtype = _DTYPES[td] if td and not self._transfer_int8 else None
         self._device_prefetch = bool(cfg.device_prefetch)
         self._meteor_synonyms = cfg.meteor_synonyms
         self._meteor_paraphrases = cfg.meteor_paraphrases
@@ -272,6 +299,8 @@ class Trainer:
                     print(f"Optimizer state not restored ({e}); reinitializing")
         opt = opt_lib.set_learning_rate(self._optimizer, self.lr_scheduler.lr)
         self._train_step, self._eval_loss_step = self._build_train_step(model, cfg)
+        if cfg.device_feature_cache:
+            self._attach_feature_caches(cfg, model.device, (train_loader, val_loader))
 
         eval_kwargs = dict(batch_size=cfg.batch_size, frame_buckets=tuple(cfg.frame_buckets))
         vidcaps = {phase: video_dataset_to_video_captions_loader(
@@ -329,6 +358,24 @@ class Trainer:
         self.summary_writer.close()
         return params, opt, self.history
 
+    @staticmethod
+    def _attach_feature_caches(cfg: TrainerConfig, device, loaders):
+        """One ``DeviceFeatureCache`` per dataset, stored in
+        ``transfer_dtype`` (float32 when None) and stacked to the frame
+        bucket of the loader's own ladder that covers its longest clip."""
+        caches = {}
+        for loader in loaders:
+            if not hasattr(loader, "attach_feature_cache"):
+                continue
+            key = id(loader.dataset)
+            if key not in caches:
+                caches[key] = cache = DeviceFeatureCache(
+                    loader.dataset, dtype=cfg.transfer_dtype or "float32", device=device,
+                    frame_buckets=tuple(loader.frame_buckets))
+                print(f"Device feature cache: {cache.nbytes() / 1e6:.1f} MB "
+                      f"({len(cache.row_of)} clips, T_top={cache.t_top})")
+            loader.attach_feature_cache(caches[key])
+
     # ------------------------------------------------------------ loops
     def train(self, model, params, opt, dataloader, epoch, gen: torch.Generator):
         """One epoch of train steps.  Each step's metrics stay on the device
@@ -336,14 +383,23 @@ class Trainer:
         sums = {k: 0.0 for k in LOSS_KEYS}
         n_samples = 0
         step_metrics = []
+        cache = getattr(dataloader, "feature_cache", None)
+        profiler = self._start_profiler(model.device, epoch)
         t0 = time.time()
         for batch in self._device_batches(dataloader, model.device):
             n_samples += batch.pop("_n_real", batch["captions"].shape[1])
-            params, metrics = self._train_step(params, opt, batch, gen)
+            if cache is not None:
+                t_pad = batch.pop("t_pad")
+                params, metrics = self._train_step_cached(params, opt, batch, cache.arrays(), gen,
+                                                          t_pad)
+            else:
+                params, metrics = self._train_step(params, opt, batch, gen)
             step_metrics.append(metrics)
         for i, m in enumerate(self._fetch(step_metrics)):
             self._log_metrics("train", epoch * len(dataloader) + i, m, sums)
         dt = time.time() - t0
+        if profiler is not None:
+            self._stop_profiler(profiler, epoch)
         n = max(len(step_metrics), 1)
         avg = {k: sums[k] / n for k in LOSS_KEYS}
         for k in LOSS_KEYS:
@@ -353,6 +409,30 @@ class Trainer:
         self.summary_writer.add_scalar("train_epoch/samples_per_sec", throughput, epoch)
         print("TRAIN", {k: round(v, 4) for k, v in avg.items()}, f"[{throughput:.1f} samples/s]")
         return params, opt, avg
+
+    def _start_profiler(self, device, epoch):
+        """A running ``torch.profiler`` trace of the first epoch this fit
+        trains when ``MVC_PROFILE_DIR`` is set (CPU and, on the card, CUDA
+        activity), else None."""
+        if not os.environ.get("MVC_PROFILE_DIR") or epoch != self.previous_epochs + 1:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    @staticmethod
+    def _stop_profiler(prof, epoch):
+        prof.stop()
+        out_dir = os.environ["MVC_PROFILE_DIR"]
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"train_epoch{epoch}.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace of epoch {epoch}: {path}")
 
     @staticmethod
     def _fetch(step_metrics):
@@ -372,9 +452,15 @@ class Trainer:
         """Validation/test loss pass with teacher forcing off."""
         sums = {k: 0.0 for k in LOSS_KEYS}
         step_metrics = []
+        cache = getattr(dataloader, "feature_cache", None)
         for batch in self._device_batches(dataloader, model.device):
             batch.pop("_n_real", None)
-            step_metrics.append(self._eval_loss_step(params, batch, None))
+            if cache is not None:
+                t_pad = batch.pop("t_pad")
+                step_metrics.append(self._eval_loss_step_cached(params, batch, cache.arrays(),
+                                                                None, t_pad))
+            else:
+                step_metrics.append(self._eval_loss_step(params, batch, None))
         for i, m in enumerate(self._fetch(step_metrics)):
             self._log_metrics(phase, epoch * len(dataloader) + i, m, sums)
         n = max(len(step_metrics), 1)

@@ -180,9 +180,12 @@ def test_model_predict_returns_strings():
                          torch.from_numpy(feats[..., :F_A]), torch.from_numpy(feats[..., F_A:]),
                          max_caption_len=L, feat_mask=torch.from_numpy(mask))
     assert len(caps) == B and all(isinstance(c, str) for c in caps)
-    with pytest.raises(NotImplementedError):
-        AVCaptioning(vocab_size=V, reconstructor_type="global", device="cpu").init(
-            torch.Generator().manual_seed(0))
+    # the single model's reconstructor is ported: it is drawn, sized H -> F
+    params = AVCaptioning(vocab_size=V, reconstructor_type="global", device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert params["reconstructor"]["rnn"]["wh"].shape == (2176, 4 * 2176)
+    with pytest.raises(ValueError):
+        AVCaptioning(vocab_size=V, reconstructor_type="both", device="cpu")
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():

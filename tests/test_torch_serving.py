@@ -161,8 +161,10 @@ def test_card_is_the_default(tiny, monkeypatch):
 
 
 def test_unported_modes_raise(tiny):
+    """An unknown wire format or decode mode fails construction (every
+    wire format of the JAX service is ported)."""
     _, _, params, model, vocab = tiny
-    for transfer in ("bf16", "int8"):
+    for transfer in ("f16", "int4"):
         with pytest.raises(ValueError):
             CaptionService(model, params, vocab,
                            ServiceConfig(**dict(SERVICE, transfer=transfer)), device="cpu")
@@ -214,6 +216,59 @@ def test_single_model_service_matches_jax_service(tiny, mode):
     assert stats["mode"] == mode and stats["requests"] == 6 and stats["batches"] < 6
 
 
+@pytest.mark.parametrize("mode", ["direct", "beam"])
+@pytest.mark.parametrize("single", [False, True], ids=["dual", "single"])
+@pytest.mark.parametrize("transfer", ["bf16", "int8"])
+def test_wire_formats_match_jax_service(tiny, transfer, single, mode):
+    """``transfer="bf16"`` (host cast, round to nearest even) and ``"int8"``
+    (host quantize, device dequantize): the same captions as the JAX
+    service over the same wire, for either model in either mode."""
+    jmodel, jvocab, params, model, vocab = tiny
+    if single:
+        cfg_s = dict(TINY_V, in_feature_size=A_DIM + V_DIM)
+        jmodel = JaxAVCaptioning(vocab_size=len(jvocab), decoder_config=DecoderConfig(**cfg_s))
+        params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(1)))
+        model = AVCaptioning(vocab_size=len(vocab), decoder_config=TorchDecoderConfig(**cfg_s),
+                             device="cpu")
+    reqs = _requests(5, 6)
+    cfg = dict(SERVICE, mode=mode, beam_width=3, beam_alpha=0.7, transfer=transfer)
+    with JaxService(jmodel, jax.tree.map(jax.numpy.asarray, params), jvocab,
+                    JaxServiceConfig(**cfg)) as svc:
+        want = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+    with CaptionService(model, from_numpy_tree(params), vocab, ServiceConfig(**cfg),
+                        device="cpu") as svc:
+        got = [f.result(timeout=300) for f in [svc.submit(v, a) for v, a in reqs]]
+        assert svc.stats()["transfer"] == transfer
+    assert got == want
+    assert len(set(got)) > 1
+
+
+def test_wire_formats_reach_the_model_as_the_jax_service_sends_them(tiny):
+    """What ``predict_tokens`` receives: bf16 features rounded as ml_dtypes
+    rounds them, and int8 features dequantized to float32 bit for bit as
+    the JAX service's jitted dequantize gives them."""
+    import jax.numpy as jnp
+
+    from mvc_tpu.data.feature_cache import quantize_int8 as jax_quantize
+
+    _, _, params, model, vocab = tiny
+    x = np.random.default_rng(6).normal(size=(4, 8, V_DIM)).astype(np.float32) * 3
+    x[1, 2] = 0.0                                   # an all-zero frame: scale 1.0
+    with CaptionService(model, from_numpy_tree(params), vocab,
+                        ServiceConfig(**dict(SERVICE, transfer="bf16")), device="cpu") as svc:
+        got = svc._to_device(x)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(x.astype(jnp.bfloat16)).astype(np.float32))
+    with CaptionService(model, from_numpy_tree(params), vocab,
+                        ServiceConfig(**dict(SERVICE, transfer="int8")), device="cpu") as svc:
+        got = svc._to_device(x)
+    q, scale = jax_quantize(x)
+    want = jax.jit(lambda q, s: q.astype(jnp.float32) * s)(q, scale)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_over_limit_clip_fails_alone(tiny, monkeypatch):
     """A clip whose frame bucket exceeds the kernel's limit (stubbed to 32
     here; the card's comes from the kernel) is refused at submit; the clips
@@ -253,8 +308,9 @@ def test_beam_wider_than_the_kernel_fails_construction(tiny, monkeypatch):
         assert svc.max_frames is None                                 # no limit on the CPU
 
 
-def test_cli_beam_flags_reach_the_service(tiny, tmp_path, monkeypatch):
-    """``--mode beam --beam_width --beam_alpha`` build a beam service."""
+def _cli_service(tiny, tmp_path, monkeypatch, flags):
+    """The service ``serve_captions.main(flags)`` builds (stopped before it
+    serves)."""
     jmodel, jvocab, params, model, vocab = tiny
     jvocab.save(str(tmp_path / "vocab.json"))
     import mvc_tpu_torch.serving as serving
@@ -274,11 +330,24 @@ def test_cli_beam_flags_reach_the_service(tiny, tmp_path, monkeypatch):
     monkeypatch.setattr(serving, "make_http_server", capture)
     with pytest.raises(Stop):
         serve_captions.main(["--checkpoint", "any.ckpt", "--vocab", str(tmp_path / "vocab.json"),
-                             "--mode", "beam", "--beam_width", "3", "--beam_alpha", "0.7",
-                             "--no_warmup", "--device", "cpu"])
+                             "--no_warmup", "--device", "cpu"] + flags)
     (svc,) = built
     svc.close()
+    return svc
+
+
+def test_cli_beam_flags_reach_the_service(tiny, tmp_path, monkeypatch):
+    """``--mode beam --beam_width --beam_alpha`` build a beam service."""
+    svc = _cli_service(tiny, tmp_path, monkeypatch,
+                       ["--mode", "beam", "--beam_width", "3", "--beam_alpha", "0.7"])
     assert (svc.config.mode, svc.config.beam_width, svc.config.beam_alpha) == ("beam", 3, 0.7)
+
+
+@pytest.mark.parametrize("transfer", ["bf16", "int8"])
+def test_cli_transfer_reaches_the_service(tiny, tmp_path, monkeypatch, transfer):
+    """``--transfer`` picks the service's wire format."""
+    svc = _cli_service(tiny, tmp_path, monkeypatch, ["--transfer", transfer])
+    assert svc.config.transfer == transfer and svc.stats()["transfer"] == transfer
 
 
 def test_package_imports_no_jax():

@@ -592,15 +592,21 @@ def test_fit_end_to_end_then_resume(synthetic_msvd, tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
+    """What is not ported raises NotImplementedError: a mesh (the trainer,
+    the CLI's --dp/--tp/--sp) and the transformer family; the feature
+    cache, int8 transfer and bf16 Adam state are ported, and a transfer
+    dtype of neither package raises ValueError."""
+    from mvc_tpu_torch.cli.train import main
     from mvc_tpu_torch.training.trainer import Trainer
 
     with pytest.raises(NotImplementedError):
         Trainer(str(tmp_path / "x.ckpt"), log_dir=None, mesh=object())
-    for kw in ({"device_feature_cache": True}, {"transfer_dtype": "int8"},
-               {"adam_state_dtype": "bfloat16"}):
+    for extra in (["--dp", "2"], ["--model", "transformer"]):
         with pytest.raises(NotImplementedError):
-            Trainer(str(tmp_path / "x.ckpt"), log_dir=None).fit(
-                None, None, None, None, None, TrainerConfig(**kw))
+            main(["--device", "cpu"] + extra)
+    with pytest.raises(ValueError):
+        Trainer(str(tmp_path / "x.ckpt"), log_dir=None).fit(
+            None, None, None, None, None, TrainerConfig(transfer_dtype="int4"))
 
 
 def test_host_bf16_cast_rounds_as_the_jax_trainer():
@@ -655,20 +661,20 @@ def test_port_checkpoint_loads_in_the_jax_package(tmp_path):
 
 
 def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
-    """``python -m mvc_tpu_torch.cli.train`` for one epoch on the CPU at the
-    reference widths; the flags of unported features raise."""
+    """``python -m mvc_tpu_torch.cli.train --reconstructor none`` for one
+    epoch on the CPU at the reference widths (one experiment, the JAX
+    single-experiment name); the flags of unported features raise."""
     from mvc_tpu_torch.cli.train import main
 
     (tmp_path / "data").mkdir()
     (tmp_path / "data" / "MSVD").symlink_to(synthetic_msvd)
     monkeypatch.chdir(tmp_path)
     args = ["--data_root", "data", "--epochs", "1", "--batch_size", "16", "--lr", "0.001",
-            "--device", "cpu"]
-    history = main(args)
+            "--device", "cpu", "--reconstructor", "none"]
+    (history,) = main(args)
     assert len(history["train_loss"]) == len(history["val_score"]) == 1
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001_last.ckpt").exists()
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001.json").exists()
-    for extra in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--device_feature_cache"],
-                  ["--adam_state_dtype", "bfloat16"], ["--model", "transformer"], ["--single"]):
+    for extra in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--model", "transformer"]):
         with pytest.raises(NotImplementedError):
             main(args + extra)
