@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training and extraction paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,17 @@ its own failure:
    bytes, the step's parts); dual direct serving over the bf16 and int8
    wires; ``python -m mvc_tpu_torch.cli.predict_captions`` in direct and
    beam mode on the cached fit's checkpoint
+8. extraction and COCO evaluation at full width (Inception-v3 at 299x299,
+   VGGish at [96, 64] with a seeded PCA, 16 kHz, seeded random weights, f32
+   without TF32), no decode kernel involved: (a) ``FeatureExtractor``'s
+   encode of 8 clips card vs CPU (features, log-mel, VGGish before and
+   after PCA), frames/s and examples/s; (b) ``extract_dataset`` over 64
+   ~10-s clips in chunks of 8 (one chunk in the 256 bucket, one above it),
+   clips/s and the visual encode's time per frame beside its bound; (c)
+   ResNet-101 at 224x224 card vs CPU; (d) where cv2 imports, the CLI
+   ``python -m mvc_tpu_torch.cli.extract_features`` over MJPG clips and
+   one batch of its features through the loader; (e) ``COCOEvalCap`` with
+   SPICE over the val captions of 7's ``predict_captions``
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -1145,6 +1157,420 @@ def rest_phase(card, device, ds, vocab_path, uncached_tr, serving, plain_serving
     return launches
 
 
+EXTRACT_ROOT = "build/chip_smoke_extract"
+EXTRACT_CLIPS = 64                  # MSVD-like: ~10-s clips at fps=1, 16 kHz audio
+EXTRACT_BATCH = 8                   # the CLI's --batch_size default
+FRAME = 299                         # Inception-v3's input
+RESNET_FRAME = 224                  # ResNet-101's
+
+
+def clip_seconds(i):
+    """Clip i's length: 9-11 s, except the 7th chunk of 8 (20 s: 160 frames,
+    the 256 bucket) and the 8th (40 s: 320 frames, above the top bucket)."""
+    chunk = i // EXTRACT_BATCH
+    return {6: 20, 7: 40}.get(chunk, 9 + i % 3)
+
+
+def decoded_clip(i, size=None):
+    """Clip i as the host decode hands it over, made from seed i: uint8
+    frames [T, size, size, 3] (T = seconds, fps=1; size FRAME unless
+    given) and a 16 kHz float32 wav."""
+    size = size or FRAME
+    rng = np.random.default_rng(1000 + i)
+    sec = clip_seconds(i)
+    frames = rng.integers(0, 256, (sec, size, size, 3), dtype=np.uint8)
+    t = np.arange(sec * 16000) / 16000
+    wav = (0.2 * np.sin(2 * np.pi * rng.uniform(200, 2000) * t)
+           + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+    return frames, wav
+
+
+def meta_tree(tree):
+    if isinstance(tree, dict):
+        return {k: meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [meta_tree(v) for v in tree]
+    return None if tree is None else torch.empty(tree.shape, device="meta")
+
+
+def model_flops(fn, params, shape):
+    """2 x multiply-adds of one input of ``shape`` through ``fn``, counted
+    by ``FlopCounterMode`` from the tree's own conv and matmul shapes
+    (shape-only tensors: nothing runs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        fn(meta_tree(params), torch.empty((1, *shape), device="meta"))
+    return fc.get_total_flops()
+
+
+def rel_in_norm(got, want):
+    """Worst relative error in norm over rows."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.linalg.norm(got - want, axis=-1)
+                  / np.maximum(np.linalg.norm(want, axis=-1), 1e-30)).max())
+
+
+def seeded_pca(seed):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((128, 128)))
+    return {"matrix": torch.from_numpy((40.0 * q).astype(np.float32)),
+            "means": torch.from_numpy((0.02 * rng.standard_normal((128, 1))).astype(np.float32))}
+
+
+def padded_shares(counts, buckets):
+    from mvc_tpu_torch.extract.features import _bucket
+
+    out = []
+    for n in counts:
+        b = _bucket(n, buckets)
+        out.append(f"{n}->{b} ({100 * (b - n) / b:.1f} % padding)")
+    return ", ".join(out)
+
+
+def encode_vs_cpu(card, label, fe, fe_cpu, clips, tol):
+    """``_encode_decoded`` of ``clips`` on the card and on the CPU: visual
+    features within ``tol`` relative in norm per frame, log-mel examples
+    within 1e-4, VGGish before PCA within 1e-4 relative, after PCA within
+    one quantum.  Returns the card's results."""
+    from mvc_tpu_torch.models import inception_v3 as iv3
+    from mvc_tpu_torch.models import vggish as vg
+    from mvc_tpu_torch.ops import logmel
+
+    t0 = time.perf_counter()
+    got = fe._encode_decoded(clips)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fe_cpu._encode_decoded(clips)
+    t_cpu = time.perf_counter() - t0
+    v_err = max(rel_in_norm(g[0], w[0]) for g, w in zip(got, want))
+    q_diff = np.concatenate([np.abs(g[1] - w[1]).ravel() for g, w in zip(got, want)])
+    n_ex = max(logmel.num_examples_for(w.shape[0]) for _, w in clips)
+    wavs = np.zeros((len(clips), logmel.samples_for(n_ex)), np.float32)
+    for i, (_, w) in enumerate(clips):
+        wavs[i, :min(w.shape[0], wavs.shape[1])] = w[:wavs.shape[1]]
+    with torch.inference_mode(), iv3.full_float32():
+        ex_card = logmel.log_mel_examples_batch(torch.from_numpy(wavs).to(fe.device), n_ex)
+        ex_cpu = logmel.log_mel_examples_batch(torch.from_numpy(wavs), n_ex)
+        mel_err = float((ex_card.cpu() - ex_cpu).abs().max())
+        flat = ex_cpu.reshape(-1, 96, 64)
+        raw_card = vg.vggish_embeddings(fe.vggish_params, flat.to(fe.device), postprocess=False)
+        raw_cpu = vg.vggish_embeddings(fe_cpu.vggish_params, flat, postprocess=False)
+        a_err = rel_in_norm(raw_card.cpu().numpy(), raw_cpu.numpy())
+    frames = sum(c[0].shape[0] for c in clips)
+    log(f"[{card}] [extract {label}] {len(clips)} clips, {frames} frames of "
+        f"{clips[0][0].shape[1]}px: card {t_card:.3f} s (first call, cuDNN set-up included), "
+        f"CPU {t_cpu:.3f} s; visual features card vs CPU worst {v_err:.3e} relative in norm per "
+        f"frame (tolerance {tol:g}); log-mel examples {mel_err:.3e} absolute (1e-4); VGGish "
+        f"before PCA {a_err:.3e} relative (1e-4); after PCA max {q_diff.max():.0f} quantum on "
+        f"{100 * float((q_diff > 0).mean()):.3f} % of {q_diff.size} values (one quantum)")
+    if not (v_err <= tol and mel_err <= 1e-4 and a_err <= 1e-4 and q_diff.max() <= 1.0):
+        raise SystemExit(f"extraction {label}: the card's features disagree with the CPU's")
+    for g in got:
+        if g[0].dtype != np.float32 or g[1].dtype != np.float32 or not np.isfinite(g[0]).all():
+            raise SystemExit(f"extraction {label}: features not finite float32")
+    return got
+
+
+def time_visual(card, label, fe, clips, peak_bound_ms):
+    """Card time of the visual encode (normalize + CNN, frames already
+    decoded; the uint8 copy to the card included) per call at the clips' bucket,
+    CUDA events, warm-up excluded; beside the per-frame bound."""
+    from mvc_tpu_torch.extract.features import _bucket
+    from mvc_tpu_torch.models import inception_v3 as iv3
+
+    frames = np.concatenate([c[0] for c in clips])
+    m, b = frames.shape[0], _bucket(frames.shape[0], fe.frame_buckets)
+    with torch.inference_mode(), iv3.full_float32():
+        fe._encode_frame_stack(frames)
+        ms = cuda_ms(lambda: fe._encode_frame_stack(frames), 3)
+    log(f"[{card}] [extract {label}] visual encode of {m} frames in the {b} bucket: {ms:.3f} ms "
+        f"a call, {ms / b:.4f} ms per padded frame, {ms / m:.4f} ms per real frame "
+        f"({1e3 * m / ms:.1f} frames/s; {1e3 * b / ms:.1f} padded frames/s); bound "
+        f"{peak_bound_ms:.4f} ms per frame (operations at 67 TFLOP/s f32): "
+        f"{100 * peak_bound_ms * b / ms:.1f} % of it")
+    return ms, m, b
+
+
+KERNEL_KINDS = (("conv, implicit GEMM", ("implicit_gemm", "xmma_fprop", "sgemm", "cutlass")),
+                ("conv, FFT", ("fft", "complex")),
+                ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
+                ("pools", ("pool",)),
+                ("concatenation", ("CatArray",)),
+                ("elementwise (affine, relu, normalize)", ("elementwise",)))
+
+
+def visual_breakdown(card, fe, clips):
+    """The visual encode at the clips' bucket: NCHW (the layout the port
+    uses) against channels_last in turns (CUDA events), and the card time
+    of one NCHW call by kind of kernel (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mvc_tpu_torch.models import inception_v3 as iv3
+
+    frames = np.concatenate([c[0] for c in clips])
+    nhwc = {}
+
+    def to_cl(t):
+        if isinstance(t, dict):
+            return {k: to_cl(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cl(v) for v in t]
+        return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+
+    cl_params = to_cl(fe.inception_params)
+    x = torch.from_numpy(frames).to(fe.device)
+
+    def run(channels_last):
+        y = iv3.imagenet_normalize(x)
+        if channels_last:
+            return iv3.inception_v3_features(cl_params, y.contiguous(
+                memory_format=torch.channels_last))
+        return iv3.inception_v3_features(fe.inception_params, y)
+
+    with torch.inference_mode(), iv3.full_float32():
+        ref = run(False).cpu().numpy()
+        for channels_last in (False, True, True, False):
+            run(channels_last)
+            nhwc.setdefault(channels_last, []).append(cuda_ms(lambda: run(channels_last), 3))
+        err = rel_in_norm(run(True).cpu().numpy(), ref)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(False)
+            torch.cuda.synchronize()
+    log(f"[{card}] [extract a] Inception-v3 on {frames.shape[0]} frames (no padding), in "
+        f"turns: NCHW {nhwc[False][0]:.3f} / {nhwc[False][1]:.3f} ms, channels_last "
+        f"{nhwc[True][0]:.3f} / {nhwc[True][1]:.3f} ms (features {err:.2e} apart)")
+    kinds = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t <= 0:
+            continue
+        kind = next((k for k, keys in KERNEL_KINDS if any(w in e.key for w in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + t / 1e3
+    total = sum(kinds.values())
+    if total <= 0:
+        log("[extract a] the profiler saw no CUDA kernels: the breakdown is not measured")
+        return
+    log(f"[{card}] [extract a] card time of one NCHW call by kind ({total:.3f} ms in all): "
+        + "; ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f} %)"
+                    for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+
+
+def extract_phase(card, device, captions_csv):
+    """8. extraction and COCO evaluation at full width (Inception-v3 at
+    299x299, VGGish at [96, 64], 16 kHz, seeded random weights, VGGish with
+    a seeded PCA), f32 without TF32: (a) the encode card vs CPU on 8 clips,
+    (b) ``extract_dataset`` over 64 clips chunk by chunk (8 a chunk; one
+    chunk in the 256 bucket, one above it) with the visual encode's card
+    time per frame beside its bound, (c) ResNet-101 at 224x224 card vs CPU,
+    (d) the CLI over MJPG clips where cv2 imports, (e) ``COCOEvalCap`` with
+    SPICE over phase 7's val captions."""
+    import shutil
+
+    from mvc_tpu_torch.extract import FeatureExtractor
+    from mvc_tpu_torch.models import inception_v3 as iv3
+    from mvc_tpu_torch.models import resnet as rn
+    from mvc_tpu_torch.models import vggish as vg
+    from mvc_tpu_torch.ops.logmel import num_examples_for
+
+    cpu = torch.device("cpu")
+    iv3_params = iv3.init_inception_v3(torch.Generator().manual_seed(20))
+    vg_params = vg.init_vggish(torch.Generator().manual_seed(21))
+    vg_params["pca"] = seeded_pca(22)
+    fe = FeatureExtractor(iv3_params, vg_params, device=device)
+    fe_cpu = FeatureExtractor(iv3_params, vg_params, device=cpu)
+    flops_frame = model_flops(iv3.inception_v3_features, iv3_params, (3, FRAME, FRAME))
+    flops_example = model_flops(lambda p, x: vg.vggish_embeddings(p, x[:, 0]), vg_params,
+                                (1, 96, 64))
+    bound_frame = flops_frame / PEAK_F32_FLOPS * 1e3
+    log(f"[extract] Inception-v3 at {FRAME}px: {flops_frame / 2e9:.4f} G multiply-adds a frame "
+        f"(counted from the tree's conv shapes), bound {bound_frame:.4f} ms a frame; VGGish "
+        f"{flops_example / 2e9:.4f} G multiply-adds an example, bound "
+        f"{flops_example / PEAK_F32_FLOPS * 1e3:.5f} ms")
+
+    # (a) the first chunk's 8 clips, card vs CPU
+    clips = [decoded_clip(i) for i in range(EXTRACT_BATCH)]
+    encode_vs_cpu(card, "a", fe, fe_cpu, clips, 1e-4)
+    frames = [c[0].shape[0] for c in clips]
+    examples = [num_examples_for(c[1].shape[0]) for c in clips]
+    log(f"[extract a] buckets: frames {padded_shares([sum(frames)], fe.frame_buckets)}; "
+        f"audio examples {padded_shares([sum(examples)], fe.audio_buckets)}")
+    time_visual(card, "a", fe, clips, bound_frame)
+    visual_breakdown(card, fe, clips)
+    with torch.inference_mode(), iv3.full_float32():
+        ex = torch.randn((sum(examples), 96, 64), generator=torch.Generator().manual_seed(23))
+        ex = ex.to(device)
+        fe._encode_audio_stack(ex)
+        a_ms = cuda_ms(lambda: fe._encode_audio_stack(ex), 3)
+    log(f"[{card}] [extract a] VGGish + PCA of {ex.shape[0]} examples: {a_ms:.3f} ms "
+        f"({1e3 * ex.shape[0] / a_ms:.1f} examples/s)")
+
+    # (b) extract_dataset over every clip, 8 a chunk, decode pipelined
+    class InMemory(FeatureExtractor):
+        """The extractor with its host decode replaced by the seeded clips
+        (no codec involved): the rest of ``extract_dataset`` is as shipped."""
+
+        def _decode_one(self, filename, fps=None):
+            return decoded_clip(int(os.path.basename(filename)[4:7]))
+
+    shutil.rmtree(EXTRACT_ROOT, ignore_errors=True)
+    videos = os.path.join(EXTRACT_ROOT, "mem", "videos")
+    os.makedirs(videos)
+    for i in range(EXTRACT_CLIPS):
+        open(os.path.join(videos, f"clip{i:03d}_0_{clip_seconds(i)}.avi"), "w").close()
+    mem = InMemory(iv3_params, vg_params, device=device)
+    chunk_frames = [sum(clip_seconds(i) for i in range(c, c + EXTRACT_BATCH))
+                    for c in range(0, EXTRACT_CLIPS, EXTRACT_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = mem.extract_dataset(videos, os.path.join(EXTRACT_ROOT, "mem", "features"),
+                                batch_size=EXTRACT_BATCH, verbose=False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{card}] [extract b] extract_dataset over {EXTRACT_CLIPS} clips ({sum(chunk_frames)} "
+        f"frames) in chunks of {EXTRACT_BATCH}: {wall:.3f} s wall, "
+        f"{EXTRACT_CLIPS / wall:.2f} clips/s, {sum(chunk_frames) / wall:.1f} frames/s; stats "
+        f"{stats} (decode_s is the in-memory stand-in, no codec); peak card memory {peak:.2f} GiB")
+    log(f"[extract b] chunk frame buckets: {padded_shares(chunk_frames, mem.frame_buckets)}")
+    if stats["done"] != EXTRACT_CLIPS or stats["failures"]:
+        raise SystemExit(f"extract_dataset finished {stats}")
+    feats = os.path.join(EXTRACT_ROOT, "mem", "features")
+    for i in (0, EXTRACT_CLIPS - 1):
+        name = f"clip{i:03d}_0_{clip_seconds(i)}.npy"
+        v = np.load(os.path.join(feats, "video", name))
+        a = np.load(os.path.join(feats, "audio", name))
+        n_ex = num_examples_for(clip_seconds(i) * 16000)     # whole 0.96-s examples
+        if v.shape != (clip_seconds(i), 2048) or a.shape != (n_ex, 128) \
+                or v.dtype != np.float32 or a.dtype != np.float32:
+            raise SystemExit(f"{name}: written features {v.shape} {v.dtype}, {a.shape} {a.dtype}")
+    again = mem.extract_dataset(videos, feats, batch_size=EXTRACT_BATCH, verbose=False)
+    if again["done"] or again["skipped"] != EXTRACT_CLIPS:
+        raise SystemExit(f"the second sweep did not skip every clip: {again}")
+    for lo, label in ((48, "b 256 bucket"), (56, "b 512 bucket")):
+        big = [decoded_clip(i) for i in range(lo, lo + EXTRACT_BATCH)]
+        torch.cuda.reset_peak_memory_stats()
+        time_visual(card, label, mem, big, bound_frame)
+        log(f"[{card}] [extract {label}] peak card memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (c) ResNet-101 at 224x224 (fc kept: 1000-d), 2 clips card vs CPU
+    rn_params = rn.init_resnet101(torch.Generator().manual_seed(24))
+    rfe = FeatureExtractor(rn_params, vg_params, visual_model="resnet", device=device)
+    rfe_cpu = FeatureExtractor(rn_params, vg_params, visual_model="resnet", device=cpu)
+    rclips = [decoded_clip(i, size=RESNET_FRAME) for i in range(2)]
+    out = encode_vs_cpu(card, "c resnet", rfe, rfe_cpu, rclips, 1e-4)
+    if out[0][0].shape != (rclips[0][0].shape[0], 1000):
+        raise SystemExit(f"ResNet-101 features {out[0][0].shape}, not [T, 1000]")
+    r_bound = model_flops(rn.resnet101_features, rn_params, (3, RESNET_FRAME, RESNET_FRAME)) / PEAK_F32_FLOPS * 1e3
+    time_visual(card, "c resnet", rfe, rclips, r_bound)
+
+    cli_phase(card, device)
+    coco_phase(card, captions_csv)
+    shutil.rmtree(EXTRACT_ROOT, ignore_errors=True)
+
+
+def cli_phase(card, device):
+    """(d) where cv2 imports: MJPG clips from ``extract/synthetic.py``, the
+    CLI over them, the written files, one batch through the loader."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        log(f"[extract d] the decode half was not run on this host: cv2 does not import ({e}); "
+            "the CLI needs OpenCV to decode videos")
+        return
+    import csv
+
+    from mvc_tpu_torch.data import Vocabulary
+    from mvc_tpu_torch.data.dataset import VideoCaptioningDataset
+    from mvc_tpu_torch.data.loader import DataLoader
+    from mvc_tpu_torch.extract.synthetic import make_clip_set
+
+    ds = os.path.join(EXTRACT_ROOT, "cli", "MSVD")
+    t0 = time.perf_counter()
+    names = make_clip_set(ds, EXTRACT_BATCH, seconds=10.0, fps=25, size=(320, 240), seed=5)
+    log(f"[extract d] {len(names)} MJPG clips (10 s, 25 fps, 320x240) + wav sidecars written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p)}
+    out = subprocess.run([sys.executable, "-m", "mvc_tpu_torch.cli.extract_features", "--dataset",
+                          ds, "--device", str(device)], capture_output=True, text=True,
+                         timeout=300, env=env)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise SystemExit(f"cli.extract_features failed:\n{out.stdout}\n{out.stderr}")
+    stats = out.stdout.strip().splitlines()[-1]
+    log(f"[{card}] [extract d] python -m mvc_tpu_torch.cli.extract_features over "
+        f"{len(names)} clips: {wall:.2f} s wall (process start included); stats {stats}")
+    rows = []
+    for name in names:
+        stem = os.path.splitext(name)[0]
+        v = np.load(os.path.join(ds, "features", "video", f"{stem}.npy"))
+        a = np.load(os.path.join(ds, "features", "audio", f"{stem}.npy"))
+        if v.shape != (10, 2048) or a.shape != (10, 128) or v.dtype != np.float32 \
+                or a.dtype != np.float32:
+            raise SystemExit(f"{stem}: written {v.shape} {v.dtype}, {a.shape} {a.dtype}")
+        vid = stem.rsplit("_", 2)[0]
+        rows.append({"VideoID": vid, "Start": 0, "End": 10, "Source": "clean",
+                     "Description": "a synthetic clip of moving stripes"})
+    os.makedirs(os.path.join(ds, "metadata"), exist_ok=True)
+    with open(os.path.join(ds, "metadata", "train.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    vocab_path = os.path.join(ds, "metadata", "vocab.json")
+    Vocabulary.prebuild([r["Description"] for r in rows], vocab_path, freq_threshold=1)
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    batch = next(iter(DataLoader(data, batch_size=EXTRACT_BATCH, prefetch=0)))
+    log(f"[extract d] one batch read back through the port's loader: visual "
+        f"{tuple(batch['visual'].shape)}, audio {tuple(batch['audio'].shape)}")
+    if batch["visual"].shape[-1] != 2048 or batch["audio"].shape[-1] != 128:
+        raise SystemExit("the loader did not read the extracted features back")
+
+
+def coco_phase(card, captions_csv):
+    """(e) ``COCOEvalCap`` (PTB tokenizer, BLEU, METEOR, ROUGE-L, CIDEr and
+    SPICE with a lexicon written over the synthetic vocabulary) over the
+    val captions phase 7's ``predict_captions`` wrote."""
+    import csv
+
+    from mvc_tpu_torch.evalcap import COCOEvalCap
+
+    gts, res = {}, {}
+    with open(captions_csv) as f:
+        for row in csv.DictReader(f):
+            gts[row["video_id"]] = row["ground_truth"].split(" | ")
+            res[row["video_id"]] = [row["generated"]]
+    words = sorted({w for caps in gts.values() for c in caps for w in c.split()}
+                   | {w for (c,) in res.values() for w in c.split()})
+    lexicon = os.path.join(EXTRACT_ROOT, "spice_lexicon.txt")
+    os.makedirs(EXTRACT_ROOT, exist_ok=True)
+    classes = ("noun", "noun", "verb", "adj", "noun", "adv")
+    with open(lexicon, "w") as f:
+        for i, w in enumerate(words):
+            f.write(f"{w} {classes[i % len(classes)]}\n")
+    t0 = time.perf_counter()
+    coco = COCOEvalCap(gts, res, spice_lexicon=lexicon)
+    scores = coco.evaluate()
+    log(f"[extract e] COCOEvalCap over {len(res)} val captions (phase 7 predict_captions, "
+        f"direct) with SPICE over a {len(words)}-word lexicon, {time.perf_counter() - t0:.2f} s: "
+        f"{json.dumps(scores)}")
+    keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE"}
+    if set(scores) != keys or not all(np.isfinite(v) and v >= 0 for v in scores.values()) \
+            or not 0 <= scores["SPICE"] <= 1 or set(coco.imgToEval) != set(res):
+        raise SystemExit(f"COCOEvalCap gave {scores}")
+    # each video's first reference as its caption: every candidate n-gram and
+    # tuple is in the references, so BLEU-4 and ROUGE-L are 1, SPICE's
+    # precision is 1 (its F well above 0)
+    oracle = COCOEvalCap(gts, {v: caps[:1] for v, caps in gts.items()},
+                         spice_lexicon=lexicon).evaluate()
+    log(f"[extract e] the same harness with each video's first reference as its caption: "
+        f"{json.dumps(oracle)}")
+    if not (oracle["Bleu_4"] > 0.99 and oracle["ROUGE_L"] > 0.99 and oracle["SPICE"] > 0.5):
+        raise SystemExit(f"COCOEvalCap scored references against themselves as {oracle}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1464,6 +1890,10 @@ def main() -> int:
     fit_launches, direct_tr = train_phase(card, device, ds, vocab_path)
     rest_launches = rest_phase(card, device, ds, vocab_path, direct_tr, (model, params, vocab),
                                lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L))
+
+    # -- 8. extraction and COCO evaluation (no decode kernel runs here)
+    extract_phase(card, device, os.path.join(TRAIN_ROOT, "results",
+                                             "captions_cached_last_val_direct.csv"))
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [

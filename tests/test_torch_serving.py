@@ -351,20 +351,27 @@ def test_cli_transfer_reaches_the_service(tiny, tmp_path, monkeypatch, transfer)
 
 
 def test_package_imports_no_jax():
-    """Every module of the port imports without JAX or the JAX package."""
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import mvc_tpu_torch\n"
-        "import mvc_tpu_torch.ops.beam, mvc_tpu_torch.models.beam, mvc_tpu_torch.ops.greedy\n"
-        "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mvc_tpu')"
-        " or k.startswith('jax')]\n"
-        "assert not bad, bad\n"
-        "print('ok', len([k for k in sys.modules if k.startswith('mvc_tpu_torch')]))\n"
-    )
+    """Every module of the port imports without JAX or the JAX package, and
+    imports as well with OpenCV hidden: only the decode functions import
+    ``cv2``."""
     root = Path(__file__).resolve().parents[1]
-    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok ")
+    for hide_cv2 in (False, True):
+        code = (
+            "import importlib, pkgutil, sys\n"
+            + ("sys.modules['cv2'] = None\n" if hide_cv2 else "")
+            + "import mvc_tpu_torch\n"
+            "import mvc_tpu_torch.ops.beam, mvc_tpu_torch.models.beam, mvc_tpu_torch.ops.greedy\n"
+            "import mvc_tpu_torch.extract, mvc_tpu_torch.cli.extract_features\n"
+            "from mvc_tpu_torch.evalcap import COCOEvalCap\n"
+            "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mvc_tpu')"
+            " or k.startswith('jax')]\n"
+            "assert not bad, bad\n"
+            "assert sys.modules.get('cv2') is None, 'a module imported cv2 at import time'\n"
+            "print('ok', len([k for k in sys.modules if k.startswith('mvc_tpu_torch')]))\n"
+        )
+        out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode == 0, (hide_cv2, out.stderr)
+        assert out.stdout.startswith("ok ")
