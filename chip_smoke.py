@@ -58,6 +58,21 @@ its own failure:
    ``python -m mvc_tpu_torch.cli.extract_features`` over MJPG clips and
    one batch of its features through the loader; (e) ``COCOEvalCap`` with
    SPICE over the val captions of 7's ``predict_captions``
+9. the transformer, int8 weights and the router, on the tree of 6-7: (a)
+   ``TransformerCaptioning`` at full width (``TransformerConfig``'s
+   defaults, V=4000, generator bias spread) in direct and beam mode (W=5)
+   at B=64, T=16: card tokens against the CPU's, ms per call, captions/s,
+   kernel launches per call, the bound; (b) one transformer train step
+   card vs CPU (B=128) and a 1-epoch ``Trainer.fit`` whose eval captions
+   are held against the CPU's decode of the trained params; (c) phase 3's
+   dual and single trees through ``quantize_model_params``, decoded through
+   ``dual_greedy.cu`` (direct), ``beam.cu`` (dual beam) and ``greedy.cu``
+   (single direct): tokens against the CPU's int8 path, int8 ms beside
+   f32 ms; (d) ``CaptionRouter`` (``dual``, ``dual_int8``,
+   ``transformer``; default ``dual``) behind ``make_http_server``: 16
+   requests a route with a ``model`` field, 4 without, one unknown model
+   (404); every caption against its route's plain version and
+   ``dual_greedy.cu``'s launches counted per route
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -497,16 +512,17 @@ def wire_values(transfer):
     return through
 
 
-def check_served(plain_fn, requests, captions, vocab, device, mode, transfer="f32"):
-    """8 served captions against the plain version on the card, each at its
-    own 64-row batch and frame bucket (the kernels are padding-invariant),
-    from the values the service's wire format gives the features."""
+def check_served(plain_fn, requests, captions, vocab, device, mode, transfer="f32", n=8):
+    """The first ``n`` served captions against the plain version on the
+    card, each at its own 64-row batch and frame bucket (the kernels are
+    padding-invariant), from the values the service's wire format gives the
+    features."""
     from mvc_tpu_torch.data.dataset import _bucket
     from mvc_tpu_torch.models.captioning import captions_from_tokens
 
     through = wire_values(transfer)
     agree = 0
-    for item, cap in list(zip(requests, captions))[:8]:
+    for item, cap in list(zip(requests, captions))[:n]:
         v = torch.tensor(item["visual"])
         t = v.shape[0]
         tp = _bucket(t, BUCKETS)
@@ -516,8 +532,8 @@ def check_served(plain_fn, requests, captions, vocab, device, mode, transfer="f3
         vis[0, :t], aud[0, :t], m[0, :t] = v, torch.tensor(item["audio"]), True
         tok = plain_fn([through(vis).to(device), through(aud).to(device)], m.to(device))
         agree += captions_from_tokens(vocab, tok[:1])[0] == cap
-    log(f"[{mode}] served captions equal to the plain version: {agree}/8")
-    if agree != 8:
+    log(f"[{mode}] served captions equal to the plain version: {agree}/{n}")
+    if agree != n:
         raise SystemExit(f"served {mode} captions disagree with the plain version")
 
 
@@ -680,6 +696,8 @@ def single_model(device):
 def named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k in tree for x in named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}{i}/")]
     return [] if tree is None else [(prefix[:-1], tree)]
 
 
@@ -695,6 +713,38 @@ class GradCapture:
         self.opt.step()
 
 
+def first_train_batch(ds, vocab_path):
+    from mvc_tpu_torch.data.dataset import VideoCaptioningDataset
+    from mvc_tpu_torch.data.loader import DataLoader
+
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    return next(iter(DataLoader(data, batch_size=TRAIN_B, prefetch=0)))
+
+
+def train_step_on(make_model, cfg, batch, dev):
+    """One train step of ``make_model``'s model on ``dev`` (the features sent
+    as bf16, the fit's default transfer dtype, then cast to the model's
+    dtype): (metrics, gradients and parameters after the step by leaf name
+    on the host, seconds, the model's class name)."""
+    from mvc_tpu_torch.training import optimizer as opt_lib
+
+    model, params = make_model(dev)
+    tr = smoke_trainer("unused.ckpt")
+    tr._transfer_dtype = torch.bfloat16
+    b = tr._put_batch(batch, dev)
+    b.pop("_n_real")
+    if model.dtype == torch.float64:
+        b = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+             for k, v in b.items()}
+    step, _ = tr._build_train_step(model, cfg)
+    opt = GradCapture(opt_lib.make_optimizer(cfg, params), params)
+    t0 = time.perf_counter()
+    params, metrics = step(params, opt, b, torch.Generator().manual_seed(1))
+    metrics = metrics.cpu()
+    return (metrics, opt.grads, {k: v.detach().cpu() for k, v in named_leaves(params)},
+            time.perf_counter() - t0, type(model).__name__)
+
+
 def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device, make_model=dual_model,
                            label="train a"):
     """(a) one train step of ``make_model``'s model from the same weights
@@ -703,34 +753,16 @@ def train_step_card_vs_cpu(card, cfg, ds, vocab_path, device, make_model=dual_mo
     1e-4 relative in norm (||card - cpu|| / ||cpu||, before the optimizer's
     clip), and every parameter leaf after the step within 1e-3 of its
     largest value (max |card - cpu| / max |cpu|)."""
-    from mvc_tpu_torch.data.dataset import VideoCaptioningDataset
-    from mvc_tpu_torch.data.loader import DataLoader
-    from mvc_tpu_torch.training import optimizer as opt_lib
-
-    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
-    batch = next(iter(DataLoader(data, batch_size=TRAIN_B, prefetch=0)))
-    out = {}
-    for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        model, params = make_model(dev)
-        tr = smoke_trainer("unused.ckpt")
-        tr._transfer_dtype = torch.bfloat16          # fit's default transfer dtype
-        step, _ = tr._build_train_step(model, cfg)
-        opt = GradCapture(opt_lib.make_optimizer(cfg, params), params)
-        b = tr._put_batch(batch, dev)
-        b.pop("_n_real")
-        t0 = time.perf_counter()
-        params, metrics = step(params, opt, b, torch.Generator().manual_seed(1))
-        metrics = metrics.cpu()
-        out[key] = (metrics, opt.grads,
-                         {k: v.detach().cpu() for k, v in named_leaves(params)},
-                         time.perf_counter() - t0)
-    (m_c, g_c, p_c, s_c), (m_h, g_h, p_h, s_h) = out["card"], out["cpu"]
+    batch = first_train_batch(ds, vocab_path)
+    out = {key: train_step_on(make_model, cfg, batch, dev)
+           for key, dev in (("card", device), ("cpu", torch.device("cpu")))}
+    (m_c, g_c, p_c, s_c, name), (m_h, g_h, p_h, s_h, _) = out["card"], out["cpu"]
     loss_rel = abs(float(m_c[0]) - float(m_h[0])) / abs(float(m_h[0]))
     g_rel = {k: float((g_c[k] - g_h[k]).norm() / g_h[k].norm().clamp_min(1e-30)) for k in g_h}
     rel = {k: float((p_c[k] - p_h[k]).abs().max() / p_h[k].abs().max().clamp_min(1e-30))
            for k in p_h}
     g_worst, worst = max(g_rel, key=g_rel.get), max(rel, key=rel.get)
-    log(f"[{label}] one train step of {type(model).__name__}, same weights and batch (B={TRAIN_B}, T="
+    log(f"[{label}] one train step of {name}, same weights and batch (B={TRAIN_B}, T="
         f"{batch['visual'].shape[1]}, L={batch['captions'].shape[0]}): card losses "
         f"{[round(float(x), 6) for x in m_c]} ({s_c:.2f} s with warm-up), cpu "
         f"{[round(float(x), 6) for x in m_h]} ({s_h:.2f} s); loss relative difference "
@@ -773,10 +805,11 @@ def eval_agreement(tr, model, loader, vocab, generated, plain_fn, label, least):
 def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least, device,
               make_model=dual_model):
     """``Trainer.fit`` of ``make_model``'s model on the card; the kernel's
-    launch count covers exactly the fit.  Checks finite losses, CIDEr in
-    every score, the checkpoint files and the eval captions against the
-    plain version (at least ``least`` equal); returns (the launch count,
-    the trainer, its optimizer)."""
+    launch count covers exactly the fit (``counter`` None: a model whose
+    eval runs no kernel).  Checks finite losses, CIDEr in every score, the
+    checkpoint files and the eval captions against the plain version (at
+    least ``least`` equal); returns (the launch count, the trainer, its
+    optimizer)."""
     from mvc_tpu_torch.data import get_loader
     from mvc_tpu_torch.data.dataset import video_dataset_to_video_captions_loader
 
@@ -786,13 +819,14 @@ def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least,
     model, params = make_model(device)
     ckpt = os.path.join(TRAIN_ROOT, "ckpt", f"{label}.ckpt")
     tr = smoke_trainer(ckpt)
-    counter.launches = 0
+    if counter is not None:
+        counter.launches = 0
     t0 = time.perf_counter()
     params, opt, hist = tr.fit(model, params, train_loader, val_loader, val_loader, cfg)
     if device.type == "cuda":
         torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = counter.launches
+    launches = counter.launches if counter is not None else None
     sc = tr.summary_writer.scalars
     if train_loader.feature_cache is not None:
         cache = train_loader.feature_cache
@@ -814,7 +848,7 @@ def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least,
         raise SystemExit(f"{label}: a score without CIDEr")
     if not os.path.isfile(ckpt.replace(".ckpt", "_last.ckpt")):
         raise SystemExit(f"{label}: no _last checkpoint")
-    if launches < 1:
+    if counter is not None and launches < 1:
         raise SystemExit(f"{label}: the fit never launched its eval kernel")
     vocab = train_loader.dataset.vocab
     for phase, loader in (("train", train_loader), ("val", val_loader)):
@@ -1571,6 +1605,406 @@ def coco_phase(card, captions_csv):
         raise SystemExit(f"COCOEvalCap scored references against themselves as {oracle}")
 
 
+# -- 9. the transformer (train and serve), int8 weights, the router ----------
+
+TRANSFORMER_CONFIG = None     # TransformerConfig's defaults: d_model 512, 8 heads, 2 layers
+
+
+def transformer_model(device):
+    """``TransformerCaptioning`` at full width (``TransformerConfig``'s
+    defaults), V=4000, seeded weights."""
+    from mvc_tpu_torch.models import TransformerCaptioning
+
+    model = TransformerCaptioning(vocab_size=V, config=TRANSFORMER_CONFIG, device=device)
+    return model, model.init(torch.Generator().manual_seed(20))
+
+
+def spread_generator(params, seed=21, scale=2e-3):
+    """The transformer's generator bias spread as ``spread_bias`` spreads the
+    RNN decoders' (a seeded permutation x scale)."""
+    g = torch.Generator().manual_seed(seed)
+    b = params["generator"]["b"]
+    perm = torch.randperm(b.shape[0], generator=g).float() * scale
+    return dict(params, generator=dict(params["generator"], b=b + perm.to(b.device)))
+
+
+def to_device(tree, device, dtype=None):
+    from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
+
+    return from_numpy_tree(tree, device, dtype)
+
+
+def tree_bytes(tree):
+    from mvc_tpu_torch.training.optimizer import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def transformer_work(model, params, b, t, row_steps):
+    """(FLOPs, bytes) of one transformer decode call.  FLOPs: both encoders
+    over the b*t frames (input projection, per layer the four projections,
+    attention over the t frames, the FFN), the cross K/V projected once,
+    then for each (rows, position) in ``row_steps`` both decoder stacks'
+    layer step (self q/k/v/o and cross q/o projections, the FFN, attention
+    over the positions decoded so far and the t frames) and the two
+    generator heads.  Bytes: every parameter, the features and the mask
+    read once, the tokens written once."""
+    cfg = model.cfg
+    D, dff, nl, bt = cfg.d_model, cfg.d_ff, cfg.num_layers, b * t
+    enc = 2 * bt * (cfg.visual_dim + cfg.audio_dim) * D
+    enc += 2 * nl * (2 * bt * (4 * D * D + 2 * D * dff) + 4 * b * t * t * D)
+    cross = 2 * nl * 2 * 2 * bt * D * D
+    steps = 0
+    for rows, pos in row_steps:
+        layer = 2 * (6 * D * D + 2 * D * dff) + 4 * ((pos + 1) + t) * D
+        steps += rows * (2 * nl * layer + 2 * 2 * D * cfg.vocab_size)
+    nbytes = tree_bytes(params) + bt * (cfg.visual_dim + cfg.audio_dim) * 4 + bt + b * (L + 2) * 4
+    return enc + cross + steps, nbytes
+
+
+def launches_per_call(fn):
+    """(kernel launches the host issued, device operations the profiler
+    saw) during one call of ``fn``, from ``torch.profiler``; None where it
+    saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = sum(e.count for e in prof.key_averages()
+               if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return host or None, dev or None
+
+
+def counting_steps(model):
+    """Wraps ``model._step`` to count the decode steps of a call."""
+    calls = [0]
+    step = model._step
+
+    def counted(*a):
+        calls[0] += 1
+        return step(*a)
+
+    model._step = counted
+    return calls
+
+
+def transformer_decode(card, device):
+    """9 (a): the transformer at full width, B=64, T=16, max_len=30, direct
+    and beam (W=5): card tokens against the CPU's of the same params, ms
+    per call with CUDA events, captions/s, launches per call, the bound."""
+    from mvc_tpu_torch.models import TransformerCaptioning
+    from mvc_tpu_torch.training.optimizer import tree_leaves
+
+    model, params = transformer_model(device)
+    params = spread_generator(params)
+    cpu = TransformerCaptioning(vocab_size=V, config=TRANSFORMER_CONFIG, device="cpu")
+    cpu_params = to_device(params, "cpu")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    vf, af, mask = decode_inputs(22, device)
+    for mode in ("direct", "beam"):
+        kw = dict(max_caption_len=L, mode=mode, beam_width=W, feat_mask=mask)
+        steps = counting_steps(model)
+        t0 = time.perf_counter()
+        tok = model.predict_tokens(params, af, vf, **kw).cpu()
+        first_s = time.perf_counter() - t0
+        n_steps = steps[0]
+        del model._step
+        t0 = time.perf_counter()
+        ref = cpu.predict_tokens(cpu_params, af.cpu(), vf.cpu(), max_caption_len=L, mode=mode,
+                                 beam_width=W, feat_mask=mask.cpu())
+        cpu_s = time.perf_counter() - t0
+        share = float((tok == ref).float().mean())
+        ms = cuda_ms(lambda: model.predict_tokens(params, af, vf, **kw), 3)
+        host_launches, dev_ops = launches_per_call(lambda: model.predict_tokens(params, af, vf,
+                                                                                **kw))
+        rows = B * (W if mode == "beam" else 1)
+        flops, nbytes = transformer_work(model, params, B, T, [(rows, p) for p in range(n_steps)])
+        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        per_step = (f"{host_launches / n_steps:.1f}" if host_launches else "not measured")
+        log(f"[{card}] [transformer a] {mode} ({n_params} parameters, "
+            f"{tree_bytes(params) / 1e6:.1f} MB f32) B={B} T={T} max_len={L} V={V}"
+            f"{f' W={W}' if mode == 'beam' else ''}: {ms:.4f} ms per call, "
+            f"{B / ms * 1e3:.2f} captions/s; {n_steps} decode steps; kernel launches per call "
+            f"{host_launches} ({per_step} per step), device operations {dev_ops}; bound "
+            f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB "
+            f"at 3.35 TB/s) = {100 * bound / ms:.2f} % of the call; first call {first_s:.2f} s, "
+            f"CPU {cpu_s:.2f} s")
+        log(f"[transformer a] {mode} tokens card against CPU, same params: "
+            f"{100 * share:.2f} % equal; sample {tok[0, :8].tolist()}")
+        if share < 0.99 or tok.shape != ref.shape:
+            raise SystemExit(f"transformer {mode}: card tokens agree with the CPU's on "
+                             f"{share:.4f} < 0.99")
+    return model, params, cpu, cpu_params
+
+
+def transformer_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
+    """One transformer train step, same weights and batch (B=128), on the
+    card and the CPU in float32 and on the card in float64 (the
+    reference): the loss card vs CPU within 1e-4 relative; each gradient
+    leaf of either float32 step within 1e-3 relative in norm of the float64
+    one.  Not 1e-4 card vs CPU: float32 itself is that far from the exact
+    gradient here (the leaves whose gradient is a small sum of large
+    cancelling terms: the input projections, the FFN and layer-norm leaves
+    of the last layers), on the CPU as on the card.  The attention key
+    biases, whose gradient is zero (the softmax over keys is shift
+    invariant), are held absolutely: zero up to float32 rounding, within
+    1e-7 (float32's epsilon) of the largest leaf's norm.  Parameters after the step are not compared: Adam's first update
+    is +-lr wherever |g| >> eps, so any two summation orders give
+    zero-initialized leaves with near-zero gradient elements different
+    updates."""
+    from mvc_tpu_torch.models import transformer as tmod
+
+    def float64_model(dev):
+        """The same model and weights in float64, its log-softmax too (the
+        model takes log-probs in float32 whatever its dtype, as JAX does):
+        a reference, not a path the port runs."""
+        model, params = transformer_model(dev)
+
+        def fused_logp(p, xv, xa):
+            return 0.5 * sum(torch.log_softmax(tmod._proj(p["generator"], tmod._layernorm(ln, x))
+                                               .double(), -1)
+                             for ln, x in ((p["ln_v"], xv), (p["ln_a"], xa)))
+
+        model.dtype, model._fused_logp = torch.float64, fused_logp
+        return model, to_device(params, dev, torch.float64)
+
+    batch = first_train_batch(ds, vocab_path)
+    runs = {key: train_step_on(make, cfg, batch, dev)
+            for key, make, dev in (("card", transformer_model, device),
+                                   ("cpu", transformer_model, torch.device("cpu")),
+                                   ("card f64", float64_model, device))}
+    (m_c, g_c, _, s_c, _), (m_h, g_h, _, s_h, _), (m_r, g_r, _, _, _) = runs.values()
+    loss_rel = abs(float(m_c[0]) - float(m_h[0])) / abs(float(m_h[0]))
+    top = max(float(g.norm()) for g in g_r.values())
+    zero = [k for k in g_r if k.endswith("/k/b")]
+
+    def rel(g, ref):
+        return {k: float((g[k].double() - ref[k].double()).norm() / ref[k].double().norm())
+                for k in ref if k not in zero}
+
+    errs = {"card": rel(g_c, g_r), "cpu": rel(g_h, g_r), "card vs cpu": rel(g_c, g_h)}
+    z = max(float(g[k].norm()) / top for g in (g_c, g_h, g_r) for k in zero)
+    text = "; ".join(
+        f"{name}: worst {max(e.values()):.3e} ({max(e, key=e.get)}), median "
+        f"{float(np.median(list(e.values()))):.3e}, above 1e-4 {sum(v > 1e-4 for v in e.values())}"
+        for name, e in errs.items())
+    log(f"[{card}] [transformer b] one train step, same weights and batch (B={TRAIN_B}, "
+        f"T={batch['visual'].shape[1]}, L={batch['captions'].shape[0]}): card losses "
+        f"{[round(float(x), 6) for x in m_c]} ({s_c:.2f} s with warm-up), cpu "
+        f"{[round(float(x), 6) for x in m_h]} ({s_h:.2f} s), float64 "
+        f"{[round(float(x), 6) for x in m_r]}; loss relative difference {loss_rel:.3e}; "
+        f"gradients of {len(g_r) - len(zero)} leaves against float64, relative in norm: {text}; "
+        f"the {len(zero)} key biases' largest norm / the largest leaf's {z:.3e}")
+    if not (loss_rel <= 1e-4 and max(errs["card"].values()) <= 1e-3
+            and max(errs["cpu"].values()) <= 1e-3 and z <= 1e-7):
+        raise SystemExit("the card's transformer train step disagrees with the CPU's")
+
+
+def transformer_train(card, device, ds, vocab_path):
+    """9 (b): one transformer train step card against CPU (B=128, with a
+    float64 reference), then a 1-epoch ``Trainer.fit`` whose eval decodes
+    on the card, its captions against the CPU's decode of the trained
+    params."""
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.models import TransformerCaptioning
+
+    transformer_step_card_vs_cpu(card, TrainerConfig(batch_size=TRAIN_B), ds, vocab_path, device)
+    cpu = TransformerCaptioning(vocab_size=V, config=TRANSFORMER_CONFIG, device="cpu")
+
+    def plain(params, b, cfg):
+        return cpu.predict_tokens(to_device(params, "cpu"), b["audio"].cpu(), b["visual"].cpu(),
+                                  max_caption_len=cfg.eval_max_caption_len,
+                                  feat_mask=b["feat_mask"].cpu())
+
+    fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=1), ds, vocab_path, "train",
+              "transformer", None, plain, 0.99, device, make_model=transformer_model)
+
+
+def int8_weights(card, device, dual_params, single_params):
+    """9 (c): ``quantize_model_params`` of the dual and single trees, decoded
+    through the kernels (dequantized once per call): dual direct
+    (``dual_greedy.cu``), dual beam (``beam.cu``), single direct
+    (``greedy.cu``); tokens against the CPU's int8 plain path (>= 99 %),
+    agreement with the float32 tokens, int8 ms beside f32 ms."""
+    from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import greedy as gr
+    from mvc_tpu_torch.ops import quant
+
+    vf, af, mask = decode_inputs(23, device)
+    launches = {}
+    for label, cls, params, mode, counter in (
+            ("dual direct", AVCaptioningDual, dual_params, "direct", dg.dual_greedy_decode),
+            ("dual beam", AVCaptioningDual, dual_params, "beam", bm.beam_decode),
+            ("single direct", AVCaptioning, single_params, "direct", gr.greedy_decode)):
+        model, cpu = cls(vocab_size=V, device=device), cls(vocab_size=V, device="cpu")
+        q = quant.quantize_model_params(params)
+        kw = dict(max_caption_len=L, mode=mode, beam_width=W, feat_mask=mask)
+        counter.launches = 0
+        tok = model.predict_tokens(q, af, vf, **kw).cpu()
+        launches[label] = counter.launches
+        ref = cpu.predict_tokens(to_device(q, "cpu"), af.cpu(), vf.cpu(), max_caption_len=L,
+                                 mode=mode, beam_width=W, feat_mask=mask.cpu())
+        f32_tok = model.predict_tokens(params, af, vf, **kw).cpu()
+        share = float((tok == ref).float().mean())
+        vs_f32 = float((tok == f32_tok).float().mean())
+        times = {"f32": [], "int8": []}
+        for key in ("f32", "int8", "int8", "f32"):
+            p = params if key == "f32" else q
+            times[key].append(cuda_ms(lambda: model.predict_tokens(p, af, vf, **kw), 3))
+        deq = cuda_ms(lambda: quant.dequantize_tree(q, torch.float32), 5)
+        q_mb = tree_bytes(q) / 1e6
+        log(f"[{card}] [int8 c] {label}: {launches[label]} launch(es) of "
+            f"{counter.__name__}; tokens equal to the CPU's int8 plain path "
+            f"{100 * share:.2f} %, to the float32 tokens {100 * vs_f32:.2f} %; ms per call "
+            f"int8 {np.mean(times['int8']):.4f} ({times['int8']}) against f32 "
+            f"{np.mean(times['f32']):.4f} ({times['f32']}); the dequantize alone "
+            f"{deq:.4f} ms; tree {q_mb:.1f} MB int8 against {tree_bytes(params) / 1e6:.1f} MB")
+        if share < 0.99 or launches[label] < 1:
+            raise SystemExit(f"int8 {label}: card tokens agree with the CPU's on {share:.4f} "
+                             f"or the kernel never launched")
+    return launches
+
+
+def post_json(base, body, path="/caption"):
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def post_all(base, bodies):
+    """All bodies posted at once, one client thread each; their captions."""
+    replies = [None] * len(bodies)
+
+    def client(i):
+        try:
+            replies[i] = post_json(base, bodies[i])
+        except Exception as e:               # reported below; the phase fails
+            replies[i] = (None, repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if any(th.is_alive() for th in threads) or any(c != 200 for c, _ in replies):
+        raise SystemExit(f"routed requests failed: {[r for r in replies if r[0] != 200][:3]}")
+    return [r["caption"] for _, r in replies]
+
+
+def router_phase(card, device, vocab, routes):
+    """9 (d): ``CaptionRouter`` over ``routes`` ({name: (model, params,
+    plain_fn)}, default "dual") behind ``make_http_server``: 16 requests a
+    route through ``POST /caption`` with a ``model`` field, route by route
+    with ``dual_greedy.cu``'s count set to 0 before and read after each; 4
+    without the field (the default); one unknown model (404).  Every
+    caption against its route's plain version.  Returns the launches by
+    route."""
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.serving import CaptionRouter, CaptionService, ServiceConfig, \
+        make_http_server
+
+    cfg = ServiceConfig(max_batch=64, frame_buckets=BUCKETS, max_caption_len=L)
+    router = CaptionRouter({name: CaptionService(m, p, vocab, cfg, device=device)
+                            for name, (m, p, _) in routes.items()}, default="dual")
+    rng = np.random.default_rng(24)
+
+    def clip():
+        t = int(rng.integers(3, 41))
+        return {"visual": rng.normal(size=(t, 2048)).astype(np.float32).round(3).tolist(),
+                "audio": rng.normal(size=(t, 128)).astype(np.float32).round(3).tolist()}
+
+    clips = {name: [clip() for _ in range(16)] for name in routes}
+    clips["(default)"] = [clip() for _ in range(4)]
+    captions, launches = {}, {}
+    server = make_http_server(router, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        warmed = router.warmup()
+        log(f"[router d] warmup {warmed} in {time.perf_counter() - t0:.2f} s")
+        router.reset_stats()
+        for name in clips:
+            bodies = clips[name] if name == "(default)" else [dict(c, model=name)
+                                                              for c in clips[name]]
+            dg.dual_greedy_decode.launches = 0
+            t0 = time.perf_counter()
+            captions[name] = post_all(base, bodies)
+            launches[name] = dg.dual_greedy_decode.launches
+            log(f"[{card}] [router d] {name}: {len(bodies)} requests in "
+                f"{time.perf_counter() - t0:.3f} s; dual_greedy_decode launches {launches[name]}")
+        code, err = post_json(base, dict(clips["dual"][0], model="no-such-model"))
+        log(f"[router d] unknown model: HTTP {code} {err}")
+        stats = router.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        router.close()
+    for name, s in stats["models"].items():
+        log(f"[router d] stats {name}: " + json.dumps(s))
+    if code != 404:
+        raise SystemExit(f"an unknown model got HTTP {code}, not 404")
+    if not (launches["dual"] > 0 and launches["dual_int8"] > 0 and launches["(default)"] > 0
+            and launches["transformer"] == 0):
+        raise SystemExit(f"the routes launched dual_greedy as {launches}")
+    for name in clips:
+        plain = routes["dual" if name == "(default)" else name][2]
+        check_served(plain, clips[name], captions[name], vocab, device, f"router {name}",
+                     n=len(clips[name]))
+    return launches
+
+
+def phase9(card, device, ds, vocab_path, vocab, dual, dual_params, single_params):
+    """9. the transformer (a: decode, b: train), (c) int8 weights on the
+    three kernels, (d) the router; each part's seconds printed.  Returns
+    the kernels' launches by path."""
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import quant
+
+    t9 = t0 = time.perf_counter()
+    tr_model, tr_params, tr_cpu, tr_cpu_params = transformer_decode(card, device)
+    log(f"[phase 9 a] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    transformer_train(card, device, ds, vocab_path)
+    log(f"[phase 9 b] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    int8 = int8_weights(card, device, dual_params, single_params)
+    log(f"[phase 9 c] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q = quant.quantize_model_params(dual_params)
+    deq = [quant.dequantize_tree(q[k], torch.float32) for k in ("v_decoder", "a_decoder")]
+    plain = [dual_params["v_decoder"], dual_params["a_decoder"]]
+
+    def plain_transformer(f, m):          # row 0 alone, on the CPU
+        return tr_cpu.predict_tokens(tr_cpu_params, f[1][:1].cpu(), f[0][:1].cpu(),
+                                     max_caption_len=L, feat_mask=m[:1].cpu())
+
+    routes = {"dual": (dual, dual_params,
+                       lambda f, m: dg.dual_greedy_decode_reference(plain, f, m, L)),
+              "dual_int8": (dual, q, lambda f, m: dg.dual_greedy_decode_reference(deq, f, m, L)),
+              "transformer": (tr_model, tr_params, plain_transformer)}
+    routed = router_phase(card, device, vocab, routes)
+    log(f"[phase 9 d] {time.perf_counter() - t0:.1f} s; phase 9 {time.perf_counter() - t9:.1f} s")
+    return {"dual_greedy": {"router dual direct": routed["dual"],
+                            "router dual int8": routed["dual_int8"],
+                            "router default (dual)": routed["(default)"],
+                            "int8 weights dual direct": int8["dual direct"]},
+            "beam": {"int8 weights dual beam": int8["dual beam"]},
+            "greedy": {"int8 weights single direct": int8["single direct"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1894,6 +2328,11 @@ def main() -> int:
     # -- 8. extraction and COCO evaluation (no decode kernel runs here)
     extract_phase(card, device, os.path.join(TRAIN_ROOT, "results",
                                              "captions_cached_last_val_direct.csv"))
+
+    # -- 9. the transformer, int8 weights and the router, on the same tree
+    p9 = phase9(card, device, ds, vocab_path, vocab, model,
+                {"v_decoder": decoders[0], "a_decoder": decoders[1]},
+                {"decoder": s_dec, "reconstructor": None})
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [
@@ -1906,7 +2345,8 @@ def main() -> int:
          "launches_by_path": {"serve dual direct": g_launches,
                               "train fit direct eval": fit_launches["dual_greedy"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
-                                 if k.startswith("dual_greedy ")}}},
+                                 if k.startswith("dual_greedy ")},
+                              **p9["dual_greedy"]}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
@@ -1916,7 +2356,8 @@ def main() -> int:
          "launches_by_path": {"serve dual beam": b_launches, "serve single beam": sb_launches,
                               "train fit beam eval": fit_launches["beam"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
-                                 if k.startswith("beam ")}}},
+                                 if k.startswith("beam ")},
+                              **p9["beam"]}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",
@@ -1925,7 +2366,8 @@ def main() -> int:
          "library_ms": None,
          "launches_by_path": {"serve single direct": s_launches,
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
-                                 if k.startswith("greedy ")}}},
+                                 if k.startswith("greedy ")},
+                              **p9["greedy"]}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -71,6 +71,9 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
     ckpt_tag = os.path.splitext(os.path.basename(args.checkpoint))[0]
 
+    # direct mode stops once every row has emitted EOS (the card's kernel
+    # runs its fixed schedule); the caption text is the same
+    extra = {"stop_at_all_eos": True} if args.mode == "direct" else {}
     score_rows = []
     for split in args.splits:
         _, ds = get_loader(root_dir=dataset_folder, dataset=args.dataset, split=split,
@@ -81,15 +84,12 @@ def main(argv=None):
         vid_gt, vid_gen = {}, {}
         with torch.no_grad():
             for batch in loader:
-                # direct mode stops once every row has emitted EOS (the card's
-                # kernel runs its fixed schedule); the caption text is the same
                 tokens = model.predict_tokens(
                     params, torch.from_numpy(batch["audio"]).to(device),
                     torch.from_numpy(batch["visual"]).to(device),
                     max_caption_len=args.max_caption_len, mode=args.mode,
                     beam_alpha=args.beam_alpha, beam_width=args.beam_width,
-                    feat_mask=torch.from_numpy(batch["feat_mask"]).to(device),
-                    stop_at_all_eos=args.mode == "direct")
+                    feat_mask=torch.from_numpy(batch["feat_mask"]).to(device), **extra)
                 caps = captions_from_tokens(vocab, tokens)
                 for vid, gt, cap in zip(batch["video_ids"], batch["captions"], caps):
                     vid_gt[vid] = list(gt)

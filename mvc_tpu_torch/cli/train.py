@@ -2,24 +2,27 @@
 
     python -m mvc_tpu_torch.cli.train --dataset MSVD --data_root datasets \\
         [--epochs 50] [--batch_size 128] [--lr 1e-4] [--reconstructor none|local|global] \\
-        [--video_only] [--single] [--eval_mode direct|beam] [--dtype float32|bfloat16] \\
-        [--device_feature_cache] [--adam_state_dtype bfloat16] [--seed 0] \\
-        [--init_checkpoint PATH] [--device cuda|cpu]
+        [--video_only] [--single] [--model rnn|transformer] [--eval_mode direct|beam] \\
+        [--dtype float32|bfloat16] [--device_feature_cache] [--adam_state_dtype bfloat16] \\
+        [--seed 0] [--init_checkpoint PATH] [--device cuda|cpu]
 
 The port of ``train.py``.  With none of ``--reconstructor``,
 ``--video_only`` or ``--single`` it runs the reference's six-experiment
 sweep ({video, video_audio} x {none, local, global}, ``build_experiments``)
 under the JAX names, log directories and loss weights; with any of them,
 one experiment.  ``--single`` trains ``AVCaptioning`` (one decoder over
-``[audio | visual]``), else ``AVCaptioningDual``.  ``--init_checkpoint``
+``[audio | visual]``), else ``AVCaptioningDual``; ``--model transformer``
+trains ``TransformerCaptioning`` in every experiment instead (the
+reconstructor and teacher-forcing settings do not apply to it; the
+experiments keep their names, as ``train.py``'s do).  ``--init_checkpoint``
 starts every experiment from a checkpoint of this package, of the JAX
 package or of the reference (a torch ``.ckpt``, converted by
 ``utils/checkpoint_convert.py``).  It trains on the card unless ``--device
 cpu`` is given; the per-epoch eval decodes through ``csrc/dual_greedy.cu``
 or, with ``--single``, ``csrc/greedy.cu`` (``--eval_mode direct``) or
-``csrc/beam.cu`` (``beam``) there.  ``--dp/--tp/--sp`` and ``--model
-transformer`` name features that are not ported yet and raise
-``NotImplementedError``.
+``csrc/beam.cu`` (``beam``) there; the transformer decodes in plain
+PyTorch.  ``--dp/--tp/--sp`` name the mesh, which is not ported yet, and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -112,8 +115,6 @@ def main(argv=None):
     """Runs the selected experiments; returns their histories in order."""
     args = parse_args(argv)
     given = [f"--{name}" for name in _UNPORTED if getattr(args, name) is not None]
-    if args.model == "transformer":
-        given.append("--model transformer")
     if given:
         raise NotImplementedError(f"{', '.join(given)}: not ported yet (ROADMAP.md §1)")
 
@@ -121,7 +122,7 @@ def main(argv=None):
 
     from mvc_tpu_torch.config import TrainerConfig
     from mvc_tpu_torch.data import Vocabulary, get_loader
-    from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual
+    from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual, TransformerCaptioning
     from mvc_tpu_torch.training.trainer import Trainer
     from mvc_tpu_torch.utils.checkpoint_convert import load_params_checkpoint
     from mvc_tpu_torch.utils.device import resolve_device
@@ -169,10 +170,13 @@ def main(argv=None):
         # the reference aliases test to val
         test_loader, _ = get_loader(split="val", **loader_kwargs)
 
-        model = model_cls(vocab_size=len(vocab),
-                          teacher_forcing_ratio=exp["model"]["teacher_forcing_ratio"],
-                          reconstructor_type=exp["model"]["reconstructor_type"], dtype=dtype,
-                          device=device)
+        if args.model == "transformer":
+            model = TransformerCaptioning(vocab_size=len(vocab), dtype=dtype, device=device)
+        else:
+            model = model_cls(vocab_size=len(vocab),
+                              teacher_forcing_ratio=exp["model"]["teacher_forcing_ratio"],
+                              reconstructor_type=exp["model"]["reconstructor_type"],
+                              dtype=dtype, device=device)
         params = model.init(torch.Generator().manual_seed(args.seed))
         if init is not None:
             params = from_numpy_tree(init["params"], device)

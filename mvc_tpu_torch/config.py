@@ -1,6 +1,7 @@
 """Configuration: the port's own copy of the special ids, the decoder,
 reconstructor, trainer and model configs (``mvc_tpu/config.py:24-81,
-84-162, 184-195``), with the same default values."""
+84-162, 184-195``) and the transformer's (``mvc_tpu/models/transformer.py:32-45``),
+with the same default values."""
 
 from __future__ import annotations
 
@@ -128,3 +129,20 @@ class ModelConfig:
     vocab_size: int = 1024              # overwritten once the vocab is built
     max_frames: int = 64
     max_caption_len: int = 34
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """The transformer captioner's widths (``models/transformer.py``)."""
+
+    vocab_size: int = 1024
+    d_model: int = 512
+    num_heads: int = 8
+    num_layers: int = 2
+    d_ff: int = 2048
+    visual_dim: int = VISUAL_FEATURE_DIM
+    audio_dim: int = AUDIO_FEATURE_DIM
+    max_len: int = 3660     # positional-encoding cap: the longest clip and caption
+
+    def replace(self, **kw) -> "TransformerConfig":
+        return dataclasses.replace(self, **kw)

@@ -13,8 +13,9 @@ scan, which replicates the reference's beam search:
   with every beam finished (every later step would only re-sort beams and
   write token 0); the result is ``[SOS] + beam 0's tokens``
 
-This is the CPU path of ``predict_tokens(mode="beam")`` of both captioners;
-on the card the search runs in ``ops/beam.py``'s kernel.
+This is the CPU path of ``predict_tokens(mode="beam")`` of the RNN
+captioners, whose search on the card runs in ``ops/beam.py``'s kernel, and
+the transformer's beam on either device.
 """
 
 from __future__ import annotations
@@ -32,12 +33,29 @@ StepFn = Callable[[torch.Tensor, object], Tuple[torch.Tensor, object]]
 
 
 def _regather(x, beam_idx):
-    """x[b, beam_idx[b, k]] for every [B, W, ...] leaf of a state tree."""
+    """x[b, beam_idx[b, k]] for every [B, W, ...] leaf of a state tree
+    (tuples, lists and dicts); leaves without the beam axes (a step
+    counter, a Python number) pass through, as in the JAX search."""
     if isinstance(x, (tuple, list)):
         return type(x)(_regather(v, beam_idx) for v in x)
+    if isinstance(x, dict):
+        return {k: _regather(v, beam_idx) for k, v in x.items()}
+    if not isinstance(x, torch.Tensor) or x.dim() < 2 or x.shape[:2] != beam_idx.shape:
+        return x
     idx = beam_idx.reshape(*beam_idx.shape, *([1] * (x.dim() - 2))).expand(
         *beam_idx.shape, *x.shape[2:])
     return torch.gather(x, 1, idx)
+
+
+def _first_tensor(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, (tuple, list, dict)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+    return None
 
 
 def beam_search(step_fn: StepFn, init_state, batch_size: int, vocab_size: int,
@@ -46,10 +64,7 @@ def beam_search(step_fn: StepFn, init_state, batch_size: int, vocab_size: int,
     """Returns token ids [B, max_caption_len + 2] (int32) beginning with SOS,
     on the device of ``init_state``'s tensors."""
     B, W, V = batch_size, beam_width, vocab_size
-    leaf = init_state
-    while isinstance(leaf, (tuple, list)):
-        leaf = leaf[0]
-    device = leaf.device
+    device = _first_tensor(init_state).device
     Lh = max_caption_len + 1
     prev = torch.full((B, W), SOS_ID, dtype=torch.long, device=device)
     # only beam 0 is live at the start; the replicas carry NEG_INF scores

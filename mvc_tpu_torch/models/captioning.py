@@ -33,8 +33,10 @@ from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
 from mvc_tpu_torch.models import reconstructor as rec
 from mvc_tpu_torch.models import rnn
+from mvc_tpu_torch.ops import quant
 from mvc_tpu_torch.ops.beam import beam_decode
 from mvc_tpu_torch.ops.beam import max_frames as beam_max_frames
+from mvc_tpu_torch.ops.beam import max_width as beam_max_width
 from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode
 from mvc_tpu_torch.ops.dual_greedy import max_frames as dual_greedy_max_frames
 from mvc_tpu_torch.ops.greedy import greedy_decode
@@ -131,6 +133,12 @@ def captions_from_tokens(vocab, tokens) -> List[str]:
     return [vocab.decode_indexes(row[1:]) for row in tokens]
 
 
+def _weight_shapes(decoder):
+    """A decoder tree whose quantized weights stand as their int8 payload:
+    the shapes the kernels' limits are read from."""
+    return quant.map_quantized(decoder, lambda w: w["q"])
+
+
 def _check_reconstructor_type(reconstructor_type: str) -> None:
     if reconstructor_type not in ("none", "global", "local"):
         raise ValueError(f"reconstructor_type must be none, global or local, "
@@ -220,15 +228,18 @@ class AVCaptioning:
         fixed schedule, ``stop_at_all_eos`` is ignored and the caption text is
         the same; beam: ``beam.cu`` with one decoder); CPU tensors run
         ``decode_greedy_tokens`` or ``beam_search``.  ``stop_at_all_eos``
-        applies to direct mode only."""
+        applies to direct mode only.  An int8-quantized decoder
+        (``ops/quant.py``) is dequantized once, in the model dtype, and then
+        takes the same route."""
         if mode not in ("direct", "beam"):
             raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
         if visual.device != self.device or audio.device != self.device:
             raise ValueError(f"features must be on the model's device {self.device}")
         cfg, dtype = self.decoder_config, self.dtype
         features = torch.cat([audio, visual], dim=-1)
+        decoder = quant.dequantize_tree(params["decoder"], dtype)
         if features.device.type == "cuda":
-            decoder = dec.cast_params_for_decode(params["decoder"], dtype)
+            decoder = dec.cast_params_for_decode(decoder, dtype)
             if mode == "beam":
                 return beam_decode([decoder], [features], feat_mask, max_caption_len,
                                    beam_width, beam_alpha, weight_dtype=dtype,
@@ -236,11 +247,11 @@ class AVCaptioning:
             return greedy_decode(decoder, features, feat_mask, max_caption_len,
                                  weight_dtype=dtype, rnn_type=cfg.rnn_type)
         if mode == "direct":
-            return dec.decode_greedy_tokens(params["decoder"], cfg, features,
+            return dec.decode_greedy_tokens(decoder, cfg, features,
                                             max_caption_len=max_caption_len,
                                             feat_mask=feat_mask, dtype=dtype,
                                             stop_at_all_eos=stop_at_all_eos)
-        dec_params, feats, keys, P = dec.decode_operands(params["decoder"], features, dtype)
+        dec_params, feats, keys, P = dec.decode_operands(decoder, features, dtype)
 
         def step_fn(prev, state):
             return dec.decoder_beam_step(dec_params, cfg, prev, state, feats, keys, feat_mask,
@@ -260,11 +271,16 @@ class AVCaptioning:
 
     def max_frames(self, params, batch: int, mode: str = "direct", beam_width: int = 5) -> int:
         """The largest T the card's kernel for ``mode`` takes at this model's
-        widths and ``batch`` clips (``greedy.cu`` or ``beam.cu``)."""
-        decoder = params["decoder"]
+        widths and ``batch`` clips (``greedy.cu`` or ``beam.cu``); the widths
+        of a quantized tree are read from its int8 payload."""
+        decoder = _weight_shapes(params["decoder"])
         if mode == "beam":
             return beam_max_frames([decoder], (self.decoder_config.rnn_type,), batch, beam_width)
         return greedy_max_frames(decoder, self.decoder_config.rnn_type, batch)
+
+    def max_beam_width(self) -> int:
+        """The widest beam the card's ``beam.cu`` takes."""
+        return beam_max_width()
 
 
 class AVCaptioningDual:
@@ -358,12 +374,16 @@ class AVCaptioningDual:
         CUDA tensors run the hand-written kernels (direct: fixed schedule,
         ``stop_at_all_eos`` is ignored and the caption text is the same);
         CPU tensors run ``dual_greedy_tokens_fused`` or ``beam_search``.
-        ``stop_at_all_eos`` applies to direct mode only."""
+        ``stop_at_all_eos`` applies to direct mode only.  Int8-quantized
+        decoders (``ops/quant.py``) are dequantized once, in the model dtype,
+        and then take the same route."""
         if mode not in ("direct", "beam"):
             raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
         if visual.device != self.device or audio.device != self.device:
             raise ValueError(f"features must be on the model's device {self.device}")
         rnn_types = (self.v_config.rnn_type, self.a_config.rnn_type)
+        params = {k: quant.dequantize_tree(params[k], self.dtype)
+                  for k in ("v_decoder", "a_decoder")}
         if visual.device.type == "cuda":
             decoders = [dec.cast_params_for_decode(params["v_decoder"], self.dtype),
                         dec.cast_params_for_decode(params["a_decoder"], self.dtype)]
@@ -383,12 +403,17 @@ class AVCaptioningDual:
 
     def max_frames(self, params, batch: int, mode: str = "direct", beam_width: int = 5) -> int:
         """The largest T the card's kernel for ``mode`` takes at this model's
-        widths and ``batch`` clips (``dual_greedy.cu`` or ``beam.cu``)."""
-        decoders = [params["v_decoder"], params["a_decoder"]]
+        widths and ``batch`` clips (``dual_greedy.cu`` or ``beam.cu``); the
+        widths of a quantized tree are read from its int8 payload."""
+        decoders = [_weight_shapes(params["v_decoder"]), _weight_shapes(params["a_decoder"])]
         rnn_types = (self.v_config.rnn_type, self.a_config.rnn_type)
         if mode == "beam":
             return beam_max_frames(decoders, rnn_types, batch, beam_width)
         return dual_greedy_max_frames(decoders, rnn_types, batch)
+
+    def max_beam_width(self) -> int:
+        """The widest beam the card's ``beam.cu`` takes."""
+        return beam_max_width()
 
     def _beam_tokens(self, params, audio, visual, max_caption_len, beam_alpha, beam_width,
                      feat_mask):

@@ -20,18 +20,24 @@ from mvc_tpu_torch.config import EOS_ID, SOS_ID, DecoderConfig
 from mvc_tpu_torch.models import attention as attn
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.models.initializers import embedding_params, linear_params
+from mvc_tpu_torch.ops import quant
 from mvc_tpu_torch.ops._decode_common import _use_factored
 
 
 def cast_params_for_decode(params, dtype):
-    """The decoder tree with every floating leaf in ``dtype``, cast once
-    before the decode loop.  Identity for float32."""
+    """The tree (dicts and lists) with every floating leaf in ``dtype``, cast
+    once before the decode loop; int8-quantized leaves (``ops/quant.py``)
+    keep their int8 payload and float32 scales.  Identity for float32."""
     if dtype == torch.float32:
         return params
 
     def cast(x):
+        if quant.is_quantized(x):
+            return x
         if isinstance(x, dict):
             return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cast(v) for v in x]
         return x.to(dtype) if x.is_floating_point() else x
 
     return cast(params)

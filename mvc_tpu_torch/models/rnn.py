@@ -14,7 +14,8 @@ from mvc_tpu_torch.models.initializers import rnn_params
 
 
 def wmat(w: torch.Tensor, dtype) -> torch.Tensor:
-    """The weight in the compute dtype (a plain cast; int8 comes later)."""
+    """The weight in the compute dtype: a plain cast (the captioners
+    dequantize an int8 tree once per call, ``ops/quant.py``)."""
     return w.to(dtype)
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List
 
 import torch
@@ -387,6 +388,16 @@ def launch(name: str, lib, args, weight_dtype, device, *extra: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+_LAUNCH_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """``wrapper.launches += 1`` under one lock: the services behind a
+    router launch the same kernel from several worker threads at once."""
+    with _LAUNCH_COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch_timed(name: str, lib, args, weight_dtype, device) -> torch.Tensor:

@@ -178,7 +178,7 @@ def _launch(args: _BeamArgs, weight_dtype, device, rows: int = 0) -> None:
     if rows not in (0,) + TILES:
         raise ValueError(f"the beam kernel's row tile is one of {TILES} (or 0), got {rows}")
     _dc.launch("beam", _library(), args, weight_dtype, device, int(rows))
-    beam_decode.launches += 1
+    _dc.count_launch(beam_decode)
 
 
 def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_len=30,
@@ -245,7 +245,7 @@ def beam_decode(
     ``rnn_types`` (LSTM/GRU, mixed allowed; each decoder has its own
     F/H/A/E); ``feat_mask``: [B, T] bool.  CUDA tensors launch the kernel on
     the current stream (asynchronously; ``beam_decode.launches`` counts
-    launches, from one thread at a time); CPU tensors take the plain
+    launches, under a lock); CPU tensors take the plain
     version.  Anything the kernel cannot take raises ValueError: a beam
     wider than 8 or a clip longer than a block's shared memory holds with
     the 8-row tile (T=1842 at the dual model's widths; the plain version

@@ -51,7 +51,7 @@ def _launch(args, weight_dtype, device) -> None:
     launch is refused.  The tensors behind ``args`` must outlive the call's
     enqueue (PyTorch's allocator orders their reuse on the same stream)."""
     _dc.launch("dual_greedy", _library(), args, weight_dtype, device)
-    dual_greedy_decode.launches += 1
+    _dc.count_launch(dual_greedy_decode)
 
 
 def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_len=30,
@@ -90,9 +90,9 @@ def dual_greedy_decode(
     ``decoder_params``: [visual, audio] decoder trees (JAX layout);
     ``feats_list``: [[B, T, Fv], [B, T, Fa]]; ``feat_mask``: [B, T] bool.
     CUDA tensors launch the kernel on the current stream (asynchronously;
-    ``dual_greedy_decode.launches`` counts launches, from one thread at a
-    time); CPU tensors take the plain version.  Anything the kernel cannot
-    take raises, including a clip longer than the shared memory of a block
+    ``dual_greedy_decode.launches`` counts launches, under a lock); CPU
+    tensors take the plain version.  Anything the kernel cannot take
+    raises, including a clip longer than the shared memory of a block
     holds: at the serving widths (H=512, A=256, V=4000) the kernel takes
     T <= 663 frames and raises ValueError above (the plain version has no
     limit)."""

@@ -64,7 +64,7 @@ def _launch(args, weight_dtype, device) -> None:
     launch is refused.  The tensors behind ``args`` must outlive the call's
     enqueue (PyTorch's allocator orders their reuse on the same stream)."""
     _dc.launch("greedy", _library(), args, weight_dtype, device)
-    greedy_decode.launches += 1
+    _dc.count_launch(greedy_decode)
 
 
 def prepare_kernel_call(decoder_params, feats, feat_mask=None, max_caption_len=30,
@@ -103,7 +103,7 @@ def greedy_decode(
     ``decoder_params``: one decoder tree (JAX layout); ``feats``: [B, T, F];
     ``feat_mask``: [B, T] bool.  CUDA tensors launch the kernel on the
     current stream (asynchronously; ``greedy_decode.launches`` counts
-    launches, from one thread at a time); CPU tensors take the plain
+    launches, under a lock); CPU tensors take the plain
     version.  Anything the kernel cannot take raises, including a clip
     longer than the shared memory of a block holds: at the single model's
     widths (F=2176, H=512, A=256, V=4000) the kernel takes T <= 3230 frames

@@ -1,11 +1,13 @@
-"""Stdlib HTTP front end for :class:`CaptionService` (``mvc_tpu/serving/http.py``,
-without the multi-model router).
+"""Stdlib HTTP front end for :class:`CaptionService` or :class:`CaptionRouter`
+(``mvc_tpu/serving/http.py``).
 
 Endpoints (JSON in/out):
 
 - ``POST /caption`` — body ``{"visual": [[...], ...], "audio": [[...], ...]?,
-  "priority": 0?, "deadline_ms": N?}``; replies ``{"caption": "...",
-  "latency_ms": N}``.  Shed requests answer 503, expired deadlines 504.
+  "model": "name"?, "priority": 0?, "deadline_ms": N?}``; replies
+  ``{"caption": "...", "latency_ms": N}``.  ``model`` picks a router's route
+  (absent: its default; unknown: 404); a single service refuses it (400).
+  Shed requests answer 503, expired deadlines 504.
 - ``POST /caption_batch`` — body ``{"items": [<same as /caption>, ...]}``;
   every item is submitted before any result is awaited, so a client batch
   rides one (or few) device batches.  Replies ``{"captions": [...]}``.
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from mvc_tpu_torch.serving.router import CaptionRouter
 from mvc_tpu_torch.serving.service import DeadlineExceeded, ServiceOverloaded
 
 
@@ -35,10 +38,12 @@ def _parse_item(item: dict) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     return visual, audio
 
 
-def _submit_kwargs(body: dict) -> dict:
-    if body.get("model") not in (None, ""):
-        raise ValueError("this server hosts a single model; no 'model' routing")
+def _submit_kwargs(body: dict, routed: bool) -> dict:
     kw = {}
+    if routed:
+        kw["model"] = body.get("model")
+    elif body.get("model") not in (None, ""):
+        raise ValueError("this server hosts a single model; no 'model' routing")
     if body.get("priority") is not None:
         kw["priority"] = int(body["priority"])
     if body.get("deadline_ms") is not None:
@@ -48,7 +53,10 @@ def _submit_kwargs(body: dict) -> dict:
 
 def make_http_server(service, host: str = "127.0.0.1", port: int = 8000) -> ThreadingHTTPServer:
     """Build (but don't start) the HTTP server; ``.serve_forever()`` to run.
-    Port 0 binds an ephemeral port (``server.server_address[1]`` has it)."""
+    ``service`` is a CaptionService or a CaptionRouter (request bodies pick
+    the model with ``"model"``).  Port 0 binds an ephemeral port
+    (``server.server_address[1]`` has it)."""
+    routed = isinstance(service, CaptionRouter)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # per-request stderr lines are noise at qps
@@ -83,7 +91,8 @@ def make_http_server(service, host: str = "127.0.0.1", port: int = 8000) -> Thre
                 if self.path == "/caption":
                     t0 = time.perf_counter()
                     visual, audio = _parse_item(body)
-                    caption = service.submit(visual, audio, **_submit_kwargs(body)).result()
+                    caption = service.submit(visual, audio,
+                                             **_submit_kwargs(body, routed)).result()
                     self._reply(200, {"caption": caption,
                                       "latency_ms": 1e3 * (time.perf_counter() - t0)})
                 elif self.path == "/caption_batch":
@@ -91,13 +100,15 @@ def make_http_server(service, host: str = "127.0.0.1", port: int = 8000) -> Thre
                     if not isinstance(items, list) or not items:
                         raise ValueError("'items' must be a non-empty list")
                     parsed = [_parse_item(it) for it in items]
-                    kw = _submit_kwargs(body)
+                    kw = _submit_kwargs(body, routed)
                     futures = [service.submit(v, a, **kw) for v, a in parsed]
                     self._reply(200, {"captions": [f.result() for f in futures]})
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
             except ServiceOverloaded as e:
                 self._reply(503, {"error": str(e)})
+            except KeyError as e:           # a router's unknown model
+                self._reply(404, {"error": str(e)})
             except ValueError as e:
                 self._reply(400, {"error": str(e)})
             except DeadlineExceeded as e:

@@ -5,11 +5,14 @@
   axis is always padded to ``max_batch``.  Padded rows carry
   ``feat_mask=False`` and zero features, so a request's caption is the same
   whether it shared a batch or rode alone.
-- **Kernel limits.** On the card the service asks the model's kernel, at
-  construction, for the largest ``t_pad`` it takes (``model.max_frames``);
-  ``submit`` raises ValueError for a longer clip, so it fails alone instead
-  of failing the batch it would have joined.  A beam wider than the beam
-  kernel takes fails construction.  The CPU path has neither limit.
+- **Model limits.** On the card the service asks the model, at
+  construction, for the largest ``t_pad`` it takes (``model.max_frames``:
+  the RNN captioners' kernel by its shared memory, the transformer's
+  positional encoding); ``submit`` raises ValueError for a longer clip, so
+  it fails alone instead of failing the batch it would have joined.  A
+  beam wider than the model takes (``model.max_beam_width``: 8 for the
+  RNN captioners' beam kernel) fails construction.  The CPU path has
+  neither limit.
 - **One worker, one card.** A background thread collects a batch (it waits
   ``max_wait_ms`` after the first queued request, or until ``max_batch``
   are in hand, filling in priority then arrival order), copies it to the
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import queue
 import threading
 import time
@@ -47,7 +51,6 @@ import torch
 from mvc_tpu_torch.data.dataset import _bucket
 from mvc_tpu_torch.data.feature_cache import dequantize_int8, quantize_int8
 from mvc_tpu_torch.models.captioning import captions_from_tokens
-from mvc_tpu_torch.ops.beam import max_width as beam_max_width
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -64,9 +67,9 @@ class ServiceConfig:
     beam_alpha: float = 0.0
     audio_dim: int = 128
     visual_dim: int = 2048
-    # direct mode on the CPU path stops once every row has emitted EOS
-    # (caption text identical); the CUDA kernel runs a fixed schedule; beam
-    # mode ignores it
+    # direct mode on the RNN captioners' CPU path stops once every row has
+    # emitted EOS (caption text identical); their CUDA kernels run a fixed
+    # schedule; beam mode and the transformer ignore it
     stop_at_all_eos: bool = True
     latency_window: int = 2048  # latencies kept for the percentile stats
     # device batches in flight: 1 = launch, sync, repeat; 2 overlaps host
@@ -110,6 +113,8 @@ def _tree_to(tree, device):
         return None
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -117,9 +122,11 @@ class CaptionService:
     """Thread-safe online captioner over the model's ``predict_tokens``.
 
     ``model`` is any captioner with the JAX models' ``predict_tokens(params,
-    audio, visual, ...)`` contract and a ``device``: ``AVCaptioningDual``
-    (two decoders) or ``AVCaptioning`` (one decoder over ``[audio |
-    visual]``; ``params`` = ``{"decoder", "reconstructor"}``).  ``device`` is
+    audio, visual, ...)`` contract, ``max_frames``, ``max_beam_width`` and
+    a ``device``: ``AVCaptioningDual`` (two decoders) or ``AVCaptioning``
+    (one decoder over ``[audio | visual]``; ``params`` = ``{"decoder",
+    "reconstructor"}``), their trees int8-quantized or not
+    (``ops/quant.py``), or ``TransformerCaptioning``.  ``device`` is
     where the decode runs: the card by default (RuntimeError when there is
     none), the plain PyTorch path with ``device="cpu"``.  The model must
     have been built for the same device."""
@@ -142,9 +149,14 @@ class CaptionService:
         if self.config.mode == "beam":
             w_max = self._kernel_width_limit()
             if w_max is not None and self.config.beam_width > w_max:
-                raise ValueError(f"beam_width={self.config.beam_width}: the card's beam kernel "
-                                 f"takes at most {w_max}")
+                raise ValueError(f"beam_width={self.config.beam_width}: this model's beam on "
+                                 f"the card takes at most {w_max}")
         self.max_frames = self._kernel_frame_limit()
+        # the all-EOS stop goes only to a predict_tokens that takes it (the
+        # transformer's does not), as the JAX service detects it
+        takes_stop = "stop_at_all_eos" in inspect.signature(model.predict_tokens).parameters
+        self._predict_extra = ({"stop_at_all_eos": True} if self.config.mode == "direct"
+                               and self.config.stop_at_all_eos and takes_stop else {})
 
         # priority queue: a plain list + condition (the bound keeps it small);
         # best = min (priority, seq), victim = max
@@ -192,8 +204,7 @@ class CaptionService:
         t_pad = _bucket(t, self.config.frame_buckets)
         if self.max_frames is not None and t_pad > self.max_frames:
             raise ValueError(f"a clip of T={t} frames pads to {t_pad}, above the "
-                             f"{self.max_frames} frames the card's kernel takes at this "
-                             f"model's widths")
+                             f"{self.max_frames} frames this model takes on the card")
         if audio is None:
             audio = np.zeros((t, self.config.audio_dim), dtype=np.float32)
         else:
@@ -231,13 +242,13 @@ class CaptionService:
         return req.future
 
     def _kernel_width_limit(self) -> Optional[int]:
-        """The widest beam the card's kernel takes; None on the CPU."""
-        return beam_max_width() if self.device.type == "cuda" else None
+        """The widest beam the model takes on the card; None on the CPU."""
+        return self.model.max_beam_width() if self.device.type == "cuda" else None
 
     def _kernel_frame_limit(self) -> Optional[int]:
-        """The largest padded clip the card's kernel takes for this model,
-        mode and batch, from the kernel's own shared-memory need; None on
-        the CPU."""
+        """The largest padded clip the model takes on the card for this mode
+        and batch (the RNN captioners' kernels: from their own
+        shared-memory need); None on the CPU."""
         if self.device.type != "cuda":
             return None
         cfg = self.config
@@ -383,8 +394,7 @@ class CaptionService:
             self.params, audio_d, visual_d,
             max_caption_len=cfg.max_caption_len, mode=cfg.mode,
             beam_alpha=cfg.beam_alpha, beam_width=cfg.beam_width,
-            feat_mask=torch.from_numpy(feat_mask).to(dev),
-            stop_at_all_eos=cfg.stop_at_all_eos)
+            feat_mask=torch.from_numpy(feat_mask).to(dev), **self._predict_extra)
         self._completions.put((tokens, batch))
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:

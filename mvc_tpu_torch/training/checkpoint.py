@@ -45,9 +45,11 @@ class _Unpickler(pickle.Unpickler):
 
 
 def _to_host(value):
-    """Tensor trees -> numpy trees; anything else as it is."""
+    """Tensor trees (dicts and lists) -> numpy trees; anything else as it is."""
     if isinstance(value, dict):
         return {k: _to_host(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_to_host(v) for v in value]
     if isinstance(value, torch.Tensor):
         return to_numpy_tree(value)
     return value
@@ -97,6 +99,10 @@ def restore_params_like(template, host_params):
         if not isinstance(host_params, dict) or set(template) != set(host_params):
             raise ValueError("checkpoint and model trees differ")
         return {k: restore_params_like(template[k], host_params[k]) for k in template}
+    if isinstance(template, list):
+        if not isinstance(host_params, list) or len(template) != len(host_params):
+            raise ValueError("checkpoint and model trees differ")
+        return [restore_params_like(t, h) for t, h in zip(template, host_params)]
     t = torch.as_tensor(host_params).to(device=template.device, dtype=template.dtype)
     if t.shape != template.shape:
         raise ValueError(f"leaf shape {tuple(t.shape)} != {tuple(template.shape)}")

@@ -36,11 +36,14 @@ STATE_FORMAT = "mvc_tpu_torch.adam"
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensor leaves of a nested dict in key order (None skipped)."""
+    """The tensor leaves of nested dicts (in key order) and lists (None
+    skipped)."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

@@ -8,7 +8,9 @@ rows.  The train step is forward + loss + backward + the optimizer, and
 the per-epoch eval decodes with ``model.predict_tokens``, which on the card
 launches ``csrc/dual_greedy.cu`` (``AVCaptioningDual``) or
 ``csrc/greedy.cu`` (``AVCaptioning``) with ``eval_mode="direct"``, and
-``csrc/beam.cu`` with ``"beam"``.  With ``MVC_PROFILE_DIR`` set, the first
+``csrc/beam.cu`` with ``"beam"``.  ``TransformerCaptioning`` has no
+``forward_hiddens``: it trains through the materializing loss and decodes
+in plain PyTorch with K/V caches.  With ``MVC_PROFILE_DIR`` set, the first
 epoch's train loop is traced by ``torch.profiler`` into a Chrome trace
 there.  The observable surface is the JAX trainer's: the history
 dict's six keys, the TensorBoard tags, 10 example captions per eval, the
@@ -19,6 +21,7 @@ main, ``_last`` at the end) and the ``eval_freq`` cadence.
 from __future__ import annotations
 
 import copy
+import inspect
 import os
 import queue
 import threading
@@ -75,6 +78,8 @@ def _tree_map(fn, tree):
         return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -475,11 +480,15 @@ class Trainer:
              get_scores=True, max_caption_len=30, beam_width=5, beam_alpha=0.0):
         """Caption-generation eval through ``model.predict_tokens`` (direct:
         greedy, the reference's fit-time setting; or beam).  Direct mode
-        asks for the all-EOS early stop, which the card's kernel ignores
-        (fixed schedule; the caption text is the same)."""
+        asks for the all-EOS early stop where ``predict_tokens`` takes it
+        (the RNN captioners; their card kernels ignore it: fixed schedule,
+        the same caption text; the transformer has none)."""
         vocab = getattr(videocaptions_loader.dataset, "vocab", None) or self._vocab
         vid_gt: Dict[str, list] = {}
         vid_gen: Dict[str, list] = {}
+        stop_eos = (mode == "direct"
+                    and "stop_at_all_eos" in inspect.signature(model.predict_tokens).parameters)
+        extra = {"stop_at_all_eos": True} if stop_eos else {}
         t0 = time.time()
         with torch.no_grad():
             for batch in videocaptions_loader:
@@ -487,7 +496,7 @@ class Trainer:
                 tokens = model.predict_tokens(
                     params, b["audio"], b["visual"], max_caption_len=max_caption_len, mode=mode,
                     beam_width=beam_width, beam_alpha=beam_alpha, feat_mask=b["feat_mask"],
-                    stop_at_all_eos=(mode == "direct"))
+                    **extra)
                 tokens = tokens.cpu().numpy()
                 for row, vid, caps in zip(tokens, batch["video_ids"], batch["captions"]):
                     vid_gt[vid] = list(caps)

@@ -362,6 +362,8 @@ def test_package_imports_no_jax():
             + "import mvc_tpu_torch\n"
             "import mvc_tpu_torch.ops.beam, mvc_tpu_torch.models.beam, mvc_tpu_torch.ops.greedy\n"
             "import mvc_tpu_torch.extract, mvc_tpu_torch.cli.extract_features\n"
+            "import mvc_tpu_torch.models.transformer, mvc_tpu_torch.serving.router\n"
+            "import mvc_tpu_torch.ops.quant\n"
             "from mvc_tpu_torch.evalcap import COCOEvalCap\n"
             "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"

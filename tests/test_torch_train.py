@@ -593,15 +593,15 @@ def test_fit_end_to_end_then_resume(synthetic_msvd, tmp_path):
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
     """What is not ported raises NotImplementedError: a mesh (the trainer,
-    the CLI's --dp/--tp/--sp) and the transformer family; the feature
-    cache, int8 transfer and bf16 Adam state are ported, and a transfer
-    dtype of neither package raises ValueError."""
+    the CLI's --dp/--tp/--sp); the transformer family, the feature cache,
+    int8 transfer and bf16 Adam state are ported, and a transfer dtype of
+    neither package raises ValueError."""
     from mvc_tpu_torch.cli.train import main
     from mvc_tpu_torch.training.trainer import Trainer
 
     with pytest.raises(NotImplementedError):
         Trainer(str(tmp_path / "x.ckpt"), log_dir=None, mesh=object())
-    for extra in (["--dp", "2"], ["--model", "transformer"]):
+    for extra in (["--dp", "2"], ["--model", "transformer", "--tp", "2"]):
         with pytest.raises(NotImplementedError):
             main(["--device", "cpu"] + extra)
     with pytest.raises(ValueError):
@@ -663,7 +663,8 @@ def test_port_checkpoint_loads_in_the_jax_package(tmp_path):
 def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
     """``python -m mvc_tpu_torch.cli.train --reconstructor none`` for one
     epoch on the CPU at the reference widths (one experiment, the JAX
-    single-experiment name); the flags of unported features raise."""
+    single-experiment name), then with ``--model transformer`` (the
+    transformer's checkpoint under the JAX name); the mesh flags raise."""
     from mvc_tpu_torch.cli.train import main
 
     (tmp_path / "data").mkdir()
@@ -675,6 +676,13 @@ def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
     assert len(history["train_loss"]) == len(history["val_score"]) == 1
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001_last.ckpt").exists()
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001.json").exists()
-    for extra in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--model", "transformer"]):
+    for extra in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
         with pytest.raises(NotImplementedError):
             main(args + extra)
+    (history,) = main(args + ["--model", "transformer"])
+    assert len(history["train_loss"]) == len(history["val_score"]) == 1
+    ckpt = tmp_path / "checkpoints" / "MSVD" / "transformer_1_epochs_custom_none_0.001_last.ckpt"
+    from mvc_tpu_torch.training.checkpoint import load_checkpoint
+
+    params = load_checkpoint(str(ckpt))["params"]
+    assert len(params["v_decoder"]) == 2 and params["generator"]["w"].shape[0] == 512

@@ -96,6 +96,9 @@ def test_own_copies_match_jax_package(tmp_path):
     for name in ("ReconstructorConfig", "TrainerConfig", "ModelConfig"):
         assert (dataclasses.asdict(getattr(tcfg, name)())
                 == dataclasses.asdict(getattr(jcfg, name)())), name
+    from mvc_tpu.models.transformer import TransformerConfig as JaxTConfig
+
+    assert dataclasses.asdict(tcfg.TransformerConfig()) == dataclasses.asdict(JaxTConfig())
     ladder = (8, 16, 32, 48, 64)
     assert [_bucket(t, ladder) for t in range(1, 300)] == \
         [jax_bucket(t, ladder) for t in range(1, 300)]
