@@ -73,6 +73,20 @@ its own failure:
    requests a route with a ``model`` field, 4 without, one unknown model
    (404); every caption against its route's plain version and
    ``dual_greedy.cu``'s launches counted per route
+10. the one-command rehearsal, ``cli.rehearse_real_data``, at full width:
+   (a) seeded stand-in weights in memory (``utils/torch_oracles``, through
+   the converters), 24 synthetic MJPG clips of 8 s at 5 fps, extraction, the
+   vocabulary, an 8-epoch cached fit of ``AVCaptioningDual`` with global
+   reconstructors whose eval decodes through ``beam.cu`` (W=5), scores: no
+   extraction failure, two clips' features against the CPU's, the fit's val
+   captions against the plain beam decode of its final params (>= 99 % of
+   the tokens), the seconds of each step and the padded-frame share; (b)
+   the same stand-ins' state dicts as weight files (``MVC_WEIGHTS_DIR``) on
+   (a)'s first 16 clips with a direct eval through ``dual_greedy.cu``: the
+   features equal (a)'s; (c) the native metrics runtime (g++): built, its
+   four functions exactly the Python paths' over 7's val captions and
+   (a)'s, ``COCOEvalCap`` timed with it and without it (8 (e) times the
+   Python paths)
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -658,20 +672,27 @@ class RecordingWriter:
         pass
 
 
-def smoke_trainer(checkpoint_name):
-    """A ``Trainer`` whose scalars are recorded and which keeps each eval's
-    generated captions: ``generated[phase, epoch] = {video: [caption]}``."""
+def smoke_trainer(checkpoint_name, **kw):
+    """A ``Trainer`` (``kw``: its other arguments; by default no log dir and
+    an eval every epoch) whose scalars are recorded and which keeps each
+    eval's captions, ``generated[phase, epoch]`` and
+    ``references[phase, epoch]`` (``{video: [caption]}``), the model, params
+    and loader of the last eval of each phase (``evaluated[phase]``), and
+    the seconds of all its evals (``eval_s``)."""
     from mvc_tpu_torch.training.trainer import Trainer
 
     class SmokeTrainer(Trainer):
         def eval(self, model, params, loader, phase, epoch, *a, **k):
+            t0 = time.perf_counter()
             out = super().eval(model, params, loader, phase, epoch, *a, **k)
-            self.generated[phase, epoch] = out[2]
+            self.eval_s += time.perf_counter() - t0
+            self.references[phase, epoch], self.generated[phase, epoch] = out[1], out[2]
+            self.evaluated[phase] = (model, params, loader)
             return out
 
-    tr = SmokeTrainer(checkpoint_name, log_dir=None, eval_freq=1)
+    tr = SmokeTrainer(checkpoint_name, **{"log_dir": None, "eval_freq": 1, **kw})
     tr.summary_writer = RecordingWriter()
-    tr.generated = {}
+    tr.generated, tr.references, tr.evaluated, tr.eval_s = {}, {}, {}, 0.0
     return tr
 
 
@@ -782,7 +803,7 @@ def eval_agreement(tr, model, loader, vocab, generated, plain_fn, label, least):
     pairs are printed."""
     from mvc_tpu_torch.models.captioning import captions_from_tokens
 
-    equal = total = 0
+    equal = total = tokens_equal = tokens = 0
     differ = []
     with torch.no_grad():
         for batch in loader:
@@ -792,12 +813,16 @@ def eval_agreement(tr, model, loader, vocab, generated, plain_fn, label, least):
                 same = generated[vid][0] == cap
                 equal += same
                 total += 1
+                k, p = generated[vid][0].split() + ["<EOS>"], cap.split() + ["<EOS>"]
+                tokens_equal += sum(x == y for x, y in zip(k, p))
+                tokens += max(len(k), len(p))
                 if not same and len(differ) < 3:
                     differ.append((vid, generated[vid][0], cap))
     share = equal / total
     log(f"[train {label}] eval captions equal to the plain version's decode of the same "
-        f"params: {equal}/{total} ({100 * share:.2f} %); differing (video, kernel, plain): "
-        f"{differ}")
+        f"params: {equal}/{total} ({100 * share:.2f} %; tokens, EOS included, "
+        f"{tokens_equal}/{tokens}, {100 * tokens_equal / tokens:.2f} %); differing (video, "
+        f"kernel, plain): {differ}")
     if share < least:
         raise SystemExit(f"{label}: the kernel's eval captions agree on {share:.4f} < {least}")
 
@@ -999,6 +1024,16 @@ def plain_dual_greedy(params, b, cfg):
                                            ("LSTM", "LSTM"))
 
 
+def plain_beam(params, b, cfg):
+    """The plain version of the dual fit's beam eval decode."""
+    from mvc_tpu_torch.ops import beam as bm
+
+    return bm.beam_decode_reference([params["v_decoder"], params["a_decoder"]],
+                                    [b["visual"], b["audio"]], b["feat_mask"],
+                                    cfg.eval_max_caption_len, cfg.eval_beam_width,
+                                    cfg.eval_beam_alpha, torch.float32, ("LSTM", "LSTM"))
+
+
 def train_phase(card, device, ds, vocab_path):
     """6. the training slice at full width (dual model, global
     reconstructors, V=4000, B=128, f32): (a) one train step card vs CPU,
@@ -1009,14 +1044,6 @@ def train_phase(card, device, ds, vocab_path):
     from mvc_tpu_torch.config import TrainerConfig
     from mvc_tpu_torch.ops import beam as bm
     from mvc_tpu_torch.ops import dual_greedy as dg
-
-    cells, f32 = ("LSTM", "LSTM"), torch.float32     # the fits compute in float32
-
-    def plain_beam(params, b, cfg):
-        return bm.beam_decode_reference([params["v_decoder"], params["a_decoder"]],
-                                        [b["visual"], b["audio"]], b["feat_mask"],
-                                        cfg.eval_max_caption_len, cfg.eval_beam_width,
-                                        cfg.eval_beam_alpha, f32, cells)
 
     train_step_card_vs_cpu(card, TrainerConfig(batch_size=TRAIN_B), ds, vocab_path, device)
     direct, direct_tr, _ = fit_phase(card, TrainerConfig(batch_size=TRAIN_B, epochs=2), ds,
@@ -1563,13 +1590,11 @@ def cli_phase(card, device):
         raise SystemExit("the loader did not read the extracted features back")
 
 
-def coco_phase(card, captions_csv):
-    """(e) ``COCOEvalCap`` (PTB tokenizer, BLEU, METEOR, ROUGE-L, CIDEr and
-    SPICE with a lexicon written over the synthetic vocabulary) over the
-    val captions phase 7's ``predict_captions`` wrote."""
+def coco_inputs(captions_csv, out_dir):
+    """(gts, res, lexicon path) from a ``predict_captions`` CSV; the SPICE
+    lexicon, written to ``out_dir``, gives each word of the captions a
+    class in turn."""
     import csv
-
-    from mvc_tpu_torch.evalcap import COCOEvalCap
 
     gts, res = {}, {}
     with open(captions_csv) as f:
@@ -1578,31 +1603,46 @@ def coco_phase(card, captions_csv):
             res[row["video_id"]] = [row["generated"]]
     words = sorted({w for caps in gts.values() for c in caps for w in c.split()}
                    | {w for (c,) in res.values() for w in c.split()})
-    lexicon = os.path.join(EXTRACT_ROOT, "spice_lexicon.txt")
-    os.makedirs(EXTRACT_ROOT, exist_ok=True)
+    lexicon = os.path.join(out_dir, "spice_lexicon.txt")
+    os.makedirs(out_dir, exist_ok=True)
     classes = ("noun", "noun", "verb", "adj", "noun", "adv")
     with open(lexicon, "w") as f:
         for i, w in enumerate(words):
             f.write(f"{w} {classes[i % len(classes)]}\n")
-    t0 = time.perf_counter()
-    coco = COCOEvalCap(gts, res, spice_lexicon=lexicon)
-    scores = coco.evaluate()
-    log(f"[extract e] COCOEvalCap over {len(res)} val captions (phase 7 predict_captions, "
-        f"direct) with SPICE over a {len(words)}-word lexicon, {time.perf_counter() - t0:.2f} s: "
-        f"{json.dumps(scores)}")
-    keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE"}
-    if set(scores) != keys or not all(np.isfinite(v) and v >= 0 for v in scores.values()) \
-            or not 0 <= scores["SPICE"] <= 1 or set(coco.imgToEval) != set(res):
-        raise SystemExit(f"COCOEvalCap gave {scores}")
-    # each video's first reference as its caption: every candidate n-gram and
-    # tuple is in the references, so BLEU-4 and ROUGE-L are 1, SPICE's
-    # precision is 1 (its F well above 0)
-    oracle = COCOEvalCap(gts, {v: caps[:1] for v, caps in gts.items()},
-                         spice_lexicon=lexicon).evaluate()
-    log(f"[extract e] the same harness with each video's first reference as its caption: "
-        f"{json.dumps(oracle)}")
-    if not (oracle["Bleu_4"] > 0.99 and oracle["ROUGE_L"] > 0.99 and oracle["SPICE"] > 0.5):
-        raise SystemExit(f"COCOEvalCap scored references against themselves as {oracle}")
+    return gts, res, lexicon
+
+
+def coco_phase(card, captions_csv):
+    """(e) ``COCOEvalCap`` (PTB tokenizer, BLEU, METEOR, ROUGE-L, CIDEr and
+    SPICE with a lexicon written over the synthetic vocabulary) over the
+    val captions phase 7's ``predict_captions`` wrote, on the metrics'
+    pure-Python paths (phase 10 (c) times the native runtime beside them)."""
+    from mvc_tpu_torch.evalcap import COCOEvalCap, use_native
+
+    gts, res, lexicon = coco_inputs(captions_csv, EXTRACT_ROOT)
+    old = use_native(False)
+    try:
+        t0 = time.perf_counter()
+        coco = COCOEvalCap(gts, res, spice_lexicon=lexicon)
+        scores = coco.evaluate()
+        log(f"[extract e] COCOEvalCap over {len(res)} val captions (phase 7 predict_captions, "
+            f"direct) with SPICE, Python paths, {time.perf_counter() - t0:.2f} s: "
+            f"{json.dumps(scores)}")
+        keys = {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr", "SPICE"}
+        if set(scores) != keys or not all(np.isfinite(v) and v >= 0 for v in scores.values()) \
+                or not 0 <= scores["SPICE"] <= 1 or set(coco.imgToEval) != set(res):
+            raise SystemExit(f"COCOEvalCap gave {scores}")
+        # each video's first reference as its caption: every candidate n-gram
+        # and tuple is in the references, so BLEU-4 and ROUGE-L are 1, SPICE's
+        # precision is 1 (its F well above 0)
+        oracle = COCOEvalCap(gts, {v: caps[:1] for v, caps in gts.items()},
+                             spice_lexicon=lexicon).evaluate()
+        log(f"[extract e] the same harness with each video's first reference as its caption: "
+            f"{json.dumps(oracle)}")
+        if not (oracle["Bleu_4"] > 0.99 and oracle["ROUGE_L"] > 0.99 and oracle["SPICE"] > 0.5):
+            raise SystemExit(f"COCOEvalCap scored references against themselves as {oracle}")
+    finally:
+        use_native(old)
 
 
 # -- 9. the transformer (train and serve), int8 weights, the router ----------
@@ -2005,6 +2045,282 @@ def phase9(card, device, ds, vocab_path, vocab, dual, dual_params, single_params
             "greedy": {"int8 weights single direct": int8["single direct"]}}
 
 
+# -- 10. the real-data rehearsal, weights from files, the native runtime -----
+
+REHEARSAL_ROOT = "build/chip_smoke_rehearsal"
+REHEARSAL_CLIPS, REHEARSAL_SECONDS = 24, 8.0     # MSVD-like clips (~10 s)
+REHEARSAL_FPS = 5               # clips written here at 5 fps: 25 (the writer's default)
+                                # would spend ~40 s of host time on synthesis alone
+REHEARSAL_EPOCHS = 8            # after 2 epochs the beam eval ends every caption at its first
+                                # token (a CPU run): the token check would compare EOS alone
+REHEARSAL_FILE_CLIPS = 16                         # (b): (a)'s first extraction chunk
+REHEARSAL_CHUNK, REHEARSAL_BUCKETS = 16, (64, 128, 256)   # the rehearsal's extraction
+
+
+def rehearse(argv, env):
+    """``python -m mvc_tpu_torch.cli.rehearse_real_data <argv>`` with only
+    ``env`` of its two variables set and its ``Trainer`` a
+    ``smoke_trainer``; prints the summary line ``main`` prints.  Returns
+    (its ``run``, the trainer)."""
+    from mvc_tpu_torch.cli import rehearse_real_data as rr
+
+    trainers = []
+
+    def trainer(checkpoint_name, **kw):
+        trainers.append(smoke_trainer(checkpoint_name, **kw))
+        return trainers[-1]
+
+    names = ("MVC_WEIGHTS_DIR", "MVC_DATA_DIR")
+    saved = {k: os.environ.pop(k) for k in names if k in os.environ}
+    os.environ.update(env)
+    trainer_cls, rr.Trainer = rr.Trainer, trainer
+    try:
+        run = rr.run(rr.parse_args(argv))
+    finally:
+        rr.Trainer = trainer_cls
+        for k in names:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+    log(json.dumps(run.summary))
+    s = run.summary
+    if s["extracted"]["failures"] or not np.isfinite(s["final_train_loss"]) \
+            or "CIDEr" not in s["val_score"]:
+        raise SystemExit(f"the rehearsal gave {s}")
+    return run, trainers[0]
+
+
+def rehearsal_agreement(tr, plain_fn, label):
+    """``eval_agreement`` of the rehearsal fit's last val eval: the captions
+    its kernel decoded against ``plain_fn``'s decode of the same (final)
+    params on the same batches; fails below 99 % of the captions."""
+    from mvc_tpu_torch.config import TrainerConfig
+
+    model, params, loader = tr.evaluated["val"]
+    epoch = max(e for phase, e in tr.generated if phase == "val")
+    eval_agreement(tr, model, loader, tr._vocab, tr.generated["val", epoch],
+                   lambda b: plain_fn(params, b, TrainerConfig()), label, 0.99)
+
+
+def clip_features(root, names):
+    """{clip: (video [T, 2048], audio [N, 128])} as the extraction saved them."""
+    out = {}
+    for n in names:
+        base = os.path.splitext(n)[0]
+        out[n] = tuple(np.load(os.path.join(root, "features", kind, base + ".npy"))
+                       for kind in ("video", "audio"))
+    return out
+
+
+MSVD_REFS = 41           # MSVD: 80,827 English captions over 1,970 clips
+
+
+def msvd_shaped(gts, seed=0):
+    """Each clip's references extended to MSVD's count, ``MSVD_REFS``, with
+    captions of 5..11 words drawn Zipf-like (by rank of frequency) from the
+    words of all the references."""
+    from collections import Counter
+
+    rng = np.random.default_rng(seed)
+    words = [w for w, _ in Counter(w for caps in gts.values() for c in caps
+                                   for w in c.split()).most_common()]
+    p = 1.0 / np.arange(1, len(words) + 1)
+    p /= p.sum()
+    return {v: caps + [" ".join(words[i] for i in rng.choice(len(words),
+                                                            int(rng.integers(5, 12)), p=p))
+                       for _ in range(MSVD_REFS - len(caps))]
+            for v, caps in gts.items()}
+
+
+def native_runtime(card, captions_csv, tr_a):
+    """(c) the native metrics runtime: built, its four functions exactly the
+    Python paths' over phase 7's val captions and the rehearsal's, and
+    ``COCOEvalCap`` timed with it and without it over three sets of the
+    same 128 clips: phase 7's captions with their 2 references, each
+    clip's first reference as its caption, and phase 7's captions against
+    ``MSVD_REFS`` references (``msvd_shaped``)."""
+    from mvc_tpu_torch.evalcap import COCOEvalCap, _native, native_status, use_native
+    from mvc_tpu_torch.evalcap import meteor as tm
+    from mvc_tpu_torch.evalcap import rouge as trouge
+    from mvc_tpu_torch.evalcap import tokenizer as ttok
+    from mvc_tpu_torch.evalcap.stemmer import porter_stem
+
+    old = use_native(True)
+    status = native_status()
+    log(f"[rehearsal c] native metrics runtime: {json.dumps(status)}")
+    if not (status["built"] and _native.available()):
+        raise SystemExit(f"the native metrics runtime did not build: {status['error']}")
+    gts, res, lexicon = coco_inputs(captions_csv, REHEARSAL_ROOT)
+    epoch = max(e for phase, e in tr_a.generated if phase == "val")
+    pairs = [(res[v][0], gts[v]) for v in res]
+    pairs += [(tr_a.generated["val", epoch][v][0], refs)
+              for v, refs in tr_a.references["val", epoch].items()]
+    counts = dict.fromkeys(("ptb_tokenize", "meteor_stats", "meteor_align_spans", "lcs"), 0)
+    for hyp_s, refs in pairs:
+        toks = []
+        for line in [hyp_s, *refs]:
+            t = _native.ptb_tokenize(line)
+            if t != ttok._ptb_tokenize_line_py(line):
+                raise SystemExit(f"ptb_tokenize differs from the Python path on {line!r}")
+            counts["ptb_tokenize"] += 1
+            toks.append(t)
+        hyp = toks[0]
+        for ref in toks[1:]:
+            hst, rst = [porter_stem(w) for w in hyp], [porter_stem(w) for w in ref]
+            m = tm._align(hyp, ref)
+            want = (sum(tm._match_weight(hyp[i], ref[j]) for i, j in m), len(m),
+                    tm._count_chunks(m))
+            checks = (("meteor_stats", _native.meteor_stats(hyp, ref, hst, rst), want),
+                      ("meteor_align_spans",
+                       _native.meteor_align_spans(hyp, ref, hst, rst, 1.0, 0.6, None, None,
+                                                  0.8, None),
+                       tm._align_spans(hyp, ref)),
+                      ("lcs", _native.lcs(hyp, ref), trouge._lcs_length_py(hyp, ref)))
+            for name, got, exp in checks:
+                if got != exp:
+                    raise SystemExit(f"{name} differs from the Python path: {got} != {exp} on "
+                                     f"{hyp} / {ref}")
+                counts[name] += 1
+    log(f"[rehearsal c] native = Python path exactly: {json.dumps(counts)} calls over "
+        f"{len(res)} phase 7 val captions and {len(pairs) - len(res)} rehearsal val captions")
+    msvd = msvd_shaped(gts)
+    sets = (("phase 7 captions, 2 references", gts, res),
+            ("each clip's first reference as its caption", gts,
+             {v: caps[:1] for v, caps in gts.items()}),
+            (f"phase 7 captions, {MSVD_REFS} references (MSVD's count)", msvd, res))
+    try:
+        for name, g, r in sets:
+            times, scores = {True: [], False: []}, {}
+            for flag in (True, False, True, False):
+                use_native(flag)
+                t0 = time.perf_counter()
+                scores[flag] = COCOEvalCap(g, r, spice_lexicon=lexicon).evaluate()
+                times[flag].append(time.perf_counter() - t0)
+            if scores[True] != scores[False]:
+                raise SystemExit(f"COCOEvalCap ({name}) with the runtime {scores[True]} != "
+                                 f"without {scores[False]}")
+            log(f"[{card}] [rehearsal c] COCOEvalCap.evaluate over {len(r)} clips, {name}, with "
+                f"SPICE (host): native runtime {[round(t, 4) for t in times[True]]} s, Python "
+                f"paths {[round(t, 4) for t in times[False]]} s (speed-up "
+                f"{min(times[False]) / min(times[True]):.2f}x); scores equal: "
+                f"{json.dumps(scores[True])}")
+    finally:
+        use_native(old)
+
+
+def rehearsal_phase(card, device, captions_csv):
+    """10. (a) ``cli.rehearse_real_data`` at full width on the card with
+    seeded stand-in weights in memory and synthetic MJPG clips (beam eval,
+    W=5): no extraction failure, two clips' card features against the CPU's,
+    the fit's beam eval against the plain beam decode, step seconds and the
+    padded-frame share; (b) again from weight files (the same stand-ins'
+    state dicts) on (a)'s first 16 clips with direct eval: the same
+    features, the fit's direct eval against the plain greedy decode; (c)
+    the native metrics runtime.  Returns the kernels' launches by path."""
+    import shutil
+
+    from mvc_tpu_torch.cli import rehearse_real_data as rr
+    from mvc_tpu_torch.extract import FeatureExtractor
+    from mvc_tpu_torch.extract.features import _bucket
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+
+    try:
+        import cv2  # noqa: F401  (the rehearsal writes and decodes MJPG clips)
+    except ImportError as e:
+        raise SystemExit(f"phase 10 needs OpenCV: {e}")
+    shutil.rmtree(REHEARSAL_ROOT, ignore_errors=True)
+    t10 = time.perf_counter()
+
+    # (a) the stand-ins in memory, beam eval; the rehearsal takes the clips
+    # it finds under its --out and writes their metadata
+    from mvc_tpu_torch.extract.synthetic import make_clip_set
+
+    t0 = time.perf_counter()
+    root_a = os.path.join(REHEARSAL_ROOT, "a", "synthetic_msvd")
+    make_clip_set(root_a, REHEARSAL_CLIPS, seconds=REHEARSAL_SECONDS, fps=REHEARSAL_FPS)
+    clips_s = time.perf_counter() - t0
+    bm.beam_decode.launches = 0
+    run, tr_a = rehearse(["--out", os.path.join(REHEARSAL_ROOT, "a"), "--n_clips",
+                          str(REHEARSAL_CLIPS), "--clip_seconds", str(REHEARSAL_SECONDS),
+                          "--epochs", str(REHEARSAL_EPOCHS), "--device", "cuda"], {})
+    beam_launches = bm.beam_decode.launches
+    ext = run.summary["extracted"]
+    names = sorted(os.listdir(os.path.join(root_a, "videos")))
+    feats = clip_features(root_a, names)
+    counts = [feats[n][0].shape[0] for n in names]
+    padded = sum(_bucket(sum(counts[i:i + REHEARSAL_CHUNK]), REHEARSAL_BUCKETS)
+                 for i in range(0, len(counts), REHEARSAL_CHUNK))
+    sec = run.seconds
+    log(f"[{card}] [rehearsal a] {len(names)} clips of {REHEARSAL_SECONDS} s (MJPG 320x240, "
+        f"{REHEARSAL_FPS} fps, written in {clips_s:.3f} s; 16 kHz sidecars), Inception-v3 "
+        f"299x299 + VGGish, AVCaptioningDual E=300 H=512 A=256, global reconstructors, B=8, "
+        f"{REHEARSAL_EPOCHS} epochs, beam eval W=5: seconds convert {sec['convert']:.3f}, metadata "
+        f"{sec['data']:.3f}, extract {sec['extract']:.3f} "
+        f"(decode busy {ext['decode_s']}, encode busy {ext['encode_s']}), vocab "
+        f"{sec['vocab']:.3f}, fit {sec['fit'] - tr_a.eval_s:.3f} (train + val loss), "
+        f"score {tr_a.eval_s:.3f} (eval: beam decode + metrics, train and val); "
+        f"frames {sum(counts)} padded to {padded} ({100 * (1 - sum(counts) / padded):.2f} % "
+        f"padding); beam.cu launches {beam_launches}")
+    if ext["done"] != REHEARSAL_CLIPS or beam_launches < 1:
+        raise SystemExit(f"rehearsal a: extracted {ext}, beam.cu launches {beam_launches}")
+    inception, vggish = rr.resolve_encoder_params(None)
+    fe_cpu = FeatureExtractor(inception, vggish, fps=1, frame_buckets=(64,),
+                              device=torch.device("cpu"))
+    pick = names[:2]
+    cpu = fe_cpu.extract_batch([os.path.join(root_a, "videos", n) for n in pick])
+    err = max(rel_in_norm(feats[n][k], c[k]) for n, c in zip(pick, cpu) for k in (0, 1))
+    log(f"[rehearsal a] card features of {pick} against the CPU's extraction with the same "
+        f"converted weights: worst relative difference in norm {err:.3e}")
+    if err > 1e-4:
+        raise SystemExit("the rehearsal's card features disagree with the CPU's")
+    rehearsal_agreement(tr_a, plain_beam, "rehearsal a val, beam.cu W=5")
+    log(f"[phase 10 a] {time.perf_counter() - t10:.1f} s")
+
+    # (b) weights from files, direct eval, on (a)'s first chunk of clips
+    t0 = time.perf_counter()
+    weights = os.path.join(REHEARSAL_ROOT, "weights")
+    os.makedirs(weights)
+    inc_sd, vgg_sd = rr.oracle_state_dicts()
+    torch.save(inc_sd, os.path.join(weights, "inception_v3.pth"))
+    torch.save(vgg_sd, os.path.join(weights, "vggish.pth"))
+    root_b = os.path.join(REHEARSAL_ROOT, "b", "synthetic_msvd")
+    shared = names[:REHEARSAL_FILE_CLIPS]
+    for sub, ext_ in (("videos", None), ("audios", ".wav")):
+        os.makedirs(os.path.join(root_b, sub))
+        for n in shared:
+            f = n if ext_ is None else os.path.splitext(n)[0] + ext_
+            shutil.copy(os.path.join(root_a, sub, f), os.path.join(root_b, sub, f))
+    dg.dual_greedy_decode.launches = 0
+    run_b, tr_b = rehearse(["--out", os.path.join(REHEARSAL_ROOT, "b"), "--n_clips",
+                      str(REHEARSAL_FILE_CLIPS), "--clip_seconds", str(REHEARSAL_SECONDS),
+                      "--epochs", "1", "--eval_mode", "direct", "--device", "cuda"],
+                     {"MVC_WEIGHTS_DIR": weights})
+    g_launches = dg.dual_greedy_decode.launches
+    feats_b = clip_features(root_b, shared)
+    err_b = max(rel_in_norm(feats_b[n][k], feats[n][k]) for n in shared for k in (0, 1))
+    same = all(np.array_equal(feats_b[n][k], feats[n][k]) for n in shared for k in (0, 1))
+    log(f"[{card}] [rehearsal b] MVC_WEIGHTS_DIR (torch.save of the stand-ins' state dicts), "
+        f"{len(shared)} clips, 1 epoch, direct eval: real_weights "
+        f"{run_b.summary['real_weights']}, seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in run_b.seconds.items()})}; features against "
+        f"(a)'s: worst relative difference in norm {err_b:.3e} (bit for bit: {same}); "
+        f"dual_greedy.cu launches {g_launches}")
+    if not run_b.summary["real_weights"] or run_b.summary["extracted"]["done"] != len(shared) \
+            or err_b > 1e-6 or g_launches < 1:
+        raise SystemExit(f"rehearsal b: {run_b.summary['extracted']}, features {err_b}, "
+                         f"launches {g_launches}")
+    rehearsal_agreement(tr_b, plain_dual_greedy, "rehearsal b val, dual_greedy.cu")
+    log(f"[phase 10 b] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    native_runtime(card, captions_csv, tr_a)
+    log(f"[phase 10 c] {time.perf_counter() - t0:.1f} s; phase 10 "
+        f"{time.perf_counter() - t10:.1f} s")
+    shutil.rmtree(REHEARSAL_ROOT, ignore_errors=True)
+    return {"beam": {"rehearsal fit beam eval": beam_launches},
+            "dual_greedy": {"rehearsal weights-from-files fit direct eval": g_launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2326,13 +2642,16 @@ def main() -> int:
                                lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L))
 
     # -- 8. extraction and COCO evaluation (no decode kernel runs here)
-    extract_phase(card, device, os.path.join(TRAIN_ROOT, "results",
-                                             "captions_cached_last_val_direct.csv"))
+    captions_csv = os.path.join(TRAIN_ROOT, "results", "captions_cached_last_val_direct.csv")
+    extract_phase(card, device, captions_csv)
 
     # -- 9. the transformer, int8 weights and the router, on the same tree
     p9 = phase9(card, device, ds, vocab_path, vocab, model,
                 {"v_decoder": decoders[0], "a_decoder": decoders[1]},
                 {"decoder": s_dec, "reconstructor": None})
+
+    # -- 10. the real-data rehearsal, weights from files, the native runtime
+    p10 = rehearsal_phase(card, device, captions_csv)
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [
@@ -2346,7 +2665,7 @@ def main() -> int:
                               "train fit direct eval": fit_launches["dual_greedy"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("dual_greedy ")},
-                              **p9["dual_greedy"]}},
+                              **p9["dual_greedy"], **p10["dual_greedy"]}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
@@ -2357,7 +2676,7 @@ def main() -> int:
                               "train fit beam eval": fit_launches["beam"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("beam ")},
-                              **p9["beam"]}},
+                              **p9["beam"], **p10["beam"]}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",

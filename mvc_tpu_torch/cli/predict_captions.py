@@ -57,7 +57,11 @@ def main(argv=None):
     dataset_folder = os.path.join(args.data_root, args.dataset)
     vocab_path = os.path.join(dataset_folder, "metadata", "vocab.json")
     if not os.path.isfile(vocab_path):
-        vocab_path = os.path.join(dataset_folder, "metadata", "vocab.pkl")
+        legacy = os.path.join(dataset_folder, "metadata", "vocab.pkl")
+        if not os.path.isfile(legacy):
+            raise SystemExit(f"No vocabulary at {vocab_path}; build one with "
+                             "python -m mvc_tpu_torch.cli.build_vocab")
+        vocab_path = legacy
     vocab = Vocabulary.load(vocab_path)
 
     ckpt = load_params_checkpoint(args.checkpoint)

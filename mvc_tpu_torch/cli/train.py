@@ -135,7 +135,7 @@ def main(argv=None):
         legacy = os.path.join(dataset_folder, "metadata", "vocab.pkl")
         if not os.path.isfile(legacy):
             raise SystemExit(f"No vocabulary at {vocab_path}; build one with "
-                             "Vocabulary.prebuild (mvc_tpu_torch/data/vocabulary.py)")
+                             "python -m mvc_tpu_torch.cli.build_vocab")
         vocab_path = legacy
     vocab = Vocabulary.load(vocab_path)
     print(f"Vocab size: {len(vocab)}")

@@ -7,11 +7,15 @@
   them to the literal ``"<UNK>"`` for ground-truth captions
 - ``decode_indexes`` stops at the first ``<EOS>``
 - load reads our JSON or the reference's pickle; save writes JSON
+- ``build_msvd_vocab`` / ``build_msr_vtt_vocab``: the one-time builds of a
+  dataset's ``metadata/vocab.json`` (``python -m mvc_tpu_torch.cli.build_vocab``)
 """
 
 from __future__ import annotations
 
+import csv
 import json
+import os
 import pickle
 from typing import Dict, Iterable, List, Sequence
 
@@ -115,3 +119,25 @@ class _ReferencePickleLoader(pickle.Unpickler):
         if name == "Vocabulary":
             return _Shim
         return super().find_class(module, name)
+
+
+def build_msr_vtt_vocab(dataset_folder: str = os.path.join("datasets", "MSR-VTT")) -> Vocabulary:
+    """Vocabulary over the MSR-VTT train+val captions, video ids 0..7008
+    (reference src/get_loader.py:92-103), written to ``metadata/vocab.json``."""
+    json_path = os.path.join(dataset_folder, "metadata", "train_val_videodatainfo.json")
+    with open(json_path) as f:
+        data = json.load(f)
+    sentences = [s["caption"] for s in data["sentences"]
+                 if 0 <= int(s["video_id"].replace("video", "")) < 7009]
+    return Vocabulary.prebuild(sentences, os.path.join(dataset_folder, "metadata", "vocab.json"))
+
+
+def build_msvd_vocab(dataset_folder: str = os.path.join("datasets", "MSVD")) -> Vocabulary:
+    """Vocabulary over the MSVD train+val captions, every row of both CSVs
+    in file order (reference src/get_loader.py:106-114), written to
+    ``metadata/vocab.json``."""
+    sentences = []
+    for split in ("train", "val"):
+        with open(os.path.join(dataset_folder, "metadata", f"{split}.csv"), newline="") as f:
+            sentences += [r["Description"] for r in csv.DictReader(f)]
+    return Vocabulary.prebuild(sentences, os.path.join(dataset_folder, "metadata", "vocab.json"))

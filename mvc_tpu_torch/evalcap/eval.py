@@ -6,6 +6,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List
 
+from mvc_tpu_torch.evalcap import _native
 from mvc_tpu_torch.evalcap.bleu import Bleu
 from mvc_tpu_torch.evalcap.cider import Cider
 from mvc_tpu_torch.evalcap.meteor import Meteor
@@ -59,6 +60,7 @@ class COCOEvalCap:
                                 else os.environ.get("MVC_SPICE_SYNONYMS") or None)
         self.eval: Dict[str, float] = {}
         self.imgToEval: Dict[str, Dict[str, float]] = {}
+        _native.prepare()
 
     def evaluate(self) -> Dict[str, float]:
         tokenizer = PTBTokenizer()

@@ -1,5 +1,7 @@
-"""METEOR scorer (Denkowski & Lavie 2011/2014 formulation), the pure-Python
-copy of ``mvc_tpu/evalcap/meteor.py``.
+"""METEOR scorer (Denkowski & Lavie 2011/2014 formulation), the copy of
+``mvc_tpu/evalcap/meteor.py``.  The alignment searches run in the native
+runtime (``evalcap/_native.py``) for references of at most 64 words, else
+in the identical Python searches below.
 
 The reference shells out to ``meteor-1.5.jar`` over a stdio line protocol
 (reference pycocoevalcap/meteor/meteor.py:19-48) — and that jar is a missing
@@ -48,6 +50,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 
+from mvc_tpu_torch.evalcap import _native
 from mvc_tpu_torch.evalcap.stemmer import porter_stem
 
 ALPHA = 0.85
@@ -190,7 +193,7 @@ def _resolve_function_words(
     return FunctionWords(fw)
 
 
-BEAM_WIDTH = 512   # meteor-1.5's Aligner uses 40; wider costs little here
+BEAM_WIDTH = _native.BEAM_WIDTH   # the Python and C++ searches share one width
 
 
 def _candidate_pairs(
@@ -397,6 +400,16 @@ def _segment_stats(
     hyp: Sequence[str], ref: Sequence[str], syn: Optional[SynonymTable] = None
 ):
     """(weighted_matches, total_matches, chunks, len_hyp, len_ref)."""
+    # The C++ search packs used-ref positions into a 64-bit mask; longer
+    # references (never seen in caption corpora) take the Python path,
+    # whose int masks are unbounded.
+    if len(ref) <= 64 and _native.available():
+        hyp_syn = [sorted(syn.ids(w)) for w in hyp] if syn is not None else None
+        ref_syn = [sorted(syn.ids(w)) for w in ref] if syn is not None else None
+        weighted, m, chunks = _native.meteor_stats(
+            hyp, ref, [porter_stem(w) for w in hyp], [porter_stem(w) for w in ref],
+            STAGE_WEIGHTS[0], STAGE_WEIGHTS[1], hyp_syn, ref_syn, STAGE_WEIGHTS[2])
+        return weighted, m, chunks, len(hyp), len(ref)
     matches = _align(hyp, ref, syn)
     weighted = sum(_match_weight(hyp[i], ref[j]) for i, j in matches)
     return weighted, len(matches), _count_chunks(matches), len(hyp), len(ref)
@@ -422,7 +435,17 @@ def _segment_stats_ex(
     if para is None and fw is None:
         weighted, m, chunks, lh, lr = _segment_stats(hyp, ref, syn)
         return weighted, weighted, m, m, chunks, float(lh), float(lr), lh, lr
-    matches = _align_spans(hyp, ref, syn, para)
+    if len(ref) <= 64 and _native.available():
+        word_cand = _candidate_pairs(hyp, ref, syn)
+        spans = (_paraphrase_candidates(hyp, ref, para, word_cand)
+                 if para is not None else None)
+        hyp_syn = [sorted(syn.ids(w)) for w in hyp] if syn is not None else None
+        ref_syn = [sorted(syn.ids(w)) for w in ref] if syn is not None else None
+        matches = _native.meteor_align_spans(
+            hyp, ref, [porter_stem(w) for w in hyp], [porter_stem(w) for w in ref],
+            STAGE_WEIGHTS[0], STAGE_WEIGHTS[1], hyp_syn, ref_syn, STAGE_WEIGHTS[2], spans)
+    else:
+        matches = _align_spans(hyp, ref, syn, para)
     cf = fw.cf if fw is not None else (lambda w: 1.0)
     wh = wr = 0.0
     mh = mr = 0

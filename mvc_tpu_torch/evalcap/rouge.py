@@ -7,9 +7,19 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+from mvc_tpu_torch.evalcap import _native
+
+
 def lcs_length(a: List[str], b: List[str]) -> int:
-    """Length of the longest common subsequence (O(len(a)*len(b)) DP with a
-    rolling row)."""
+    """Length of the longest common subsequence: the native runtime's DP, or
+    the identical Python one."""
+    if _native.available():
+        return _native.lcs(a, b)
+    return _lcs_length_py(a, b)
+
+
+def _lcs_length_py(a: List[str], b: List[str]) -> int:
+    """O(len(a)*len(b)) DP with a rolling row."""
     if len(a) < len(b):
         a, b = b, a
     if not b:

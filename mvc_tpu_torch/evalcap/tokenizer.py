@@ -1,6 +1,7 @@
-"""PTB-style tokenizer for COCO-style evaluation: the pure-Python copy of
-``mvc_tpu/evalcap/tokenizer.py`` (the JAX package's optional C++ scanner
-gives the same tokens).
+"""PTB-style tokenizer for COCO-style evaluation: the copy of
+``mvc_tpu/evalcap/tokenizer.py``.  ASCII lines go through the native
+runtime's scanner (``evalcap/_native.py``), the rest through the identical
+Python path.
 
 The reference shells out to Stanford CoreNLP's PTBTokenizer
 (``-preserveLines -lowerCase``) and then strips a fixed punctuation list
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import re
 from typing import Dict, List
+
+from mvc_tpu_torch.evalcap import _native
 
 # The punctuation the reference removes after tokenization
 # (pycocoevalcap/tokenizer/ptbtokenizer.py:21-22).
@@ -50,6 +53,12 @@ def _split_word(tok: str) -> List[str]:
 
 def ptb_tokenize_line(line: str) -> List[str]:
     """PTB word tokens of one caption, lowercased, punctuation stripped."""
+    if line.isascii() and _native.available():
+        return _native.ptb_tokenize(line)
+    return _ptb_tokenize_line_py(line)
+
+
+def _ptb_tokenize_line_py(line: str) -> List[str]:
     # lowercase first so contraction handling is case-uniform
     line = line.lower()
     out: List[str] = []

@@ -39,7 +39,7 @@ from mvc_tpu_torch.data.feature_cache import (
     gather_features,
     quantize_int8,
 )
-from mvc_tpu_torch.evalcap import NLPScore
+from mvc_tpu_torch.evalcap import NLPScore, prepare_native
 from mvc_tpu_torch.training import fused_loss as fused_lib
 from mvc_tpu_torch.training import losses as loss_lib
 from mvc_tpu_torch.training import optimizer as opt_lib
@@ -101,6 +101,7 @@ class Trainer:
         self._meteor_paraphrases = None
         self._meteor_function_words = None
         self._saver = AsyncSaver()
+        prepare_native()        # the metrics runtime's compile, outside the timed evals
 
     # ------------------------------------------------------------ steps
     def _build_train_step(self, model, cfg: TrainerConfig):

@@ -364,7 +364,11 @@ def test_package_imports_no_jax():
             "import mvc_tpu_torch.extract, mvc_tpu_torch.cli.extract_features\n"
             "import mvc_tpu_torch.models.transformer, mvc_tpu_torch.serving.router\n"
             "import mvc_tpu_torch.ops.quant\n"
-            "from mvc_tpu_torch.evalcap import COCOEvalCap\n"
+            "import mvc_tpu_torch.cli.rehearse_real_data, mvc_tpu_torch.cli.build_vocab\n"
+            "import mvc_tpu_torch.cli.build_wordnet_tables, mvc_tpu_torch.utils.torch_oracles\n"
+            "import mvc_tpu_torch.evalcap._native\n"
+            "from mvc_tpu_torch.data import build_msvd_vocab, build_msr_vtt_vocab\n"
+            "from mvc_tpu_torch.evalcap import COCOEvalCap, native_status\n"
             "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'mvc_tpu')"
