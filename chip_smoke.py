@@ -87,6 +87,22 @@ its own failure:
    four functions exactly the Python paths' over 7's val captions and
    (a)'s, ``COCOEvalCap`` timed with it and without it (8 (e) times the
    Python paths)
+11. the data-parallel mesh at full width, on phase 3's trees and phase
+   6-7's tree: (a) ``predict_tokens(mesh=)`` over dp=4 shards of the card,
+   each on its own CUDA stream, dual direct, dual beam and single direct at
+   B=64 and B=62 (padded to 64): tokens equal to the unsharded call's and
+   the plain version's, one launch a shard, 4 x 16 rows against 1 x 64 rows
+   timed; (b) ``cli.train --dp 1`` under an NCCL group of one rank against
+   the CLI with no process group (history within 1e-6, eval captions
+   against the plain decode), the step with and without the mesh and the
+   gradients' NCCL all-reduce timed; (c) two spawned ranks on the one card
+   over gloo, 3 steps of a global batch of 128 with a padded last batch
+   against one process over the union batch (loss and every gradient leaf
+   within 1e-4, ranks' parameters equal), each rank's eval through
+   ``dual_greedy.cu`` gathered equal to one process's, gloo's all-reduce
+   timed; (d) ``FeatureExtractor(mesh=)`` over 2 shards on 8 of phase 8's
+   clips (within 1e-5 of one device); (e) ``CaptionService(mesh=)`` dual
+   direct behind HTTP, 16 requests
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -162,7 +178,7 @@ def spread_bias(decoders, seed, scale=2e-3, eos_bias=0.0):
     from mvc_tpu_torch.config import EOS_ID
 
     g = torch.Generator().manual_seed(seed)
-    perm = torch.randperm(V, generator=g).float() * scale
+    perm = torch.randperm(decoders[0]["out"]["b"].shape[0], generator=g).float() * scale
     if eos_bias:
         perm[EOS_ID] = perm.max() + eos_bias
     out = []
@@ -391,7 +407,8 @@ def staggered_eos(bm, params, feats, mask, cells):
     raise SystemExit("no EOS lift makes the clips of one cluster stop at different steps")
 
 
-def serve(model, params, vocab, device, mode, label="", transfer="f32"):
+def serve(model, params, vocab, device, mode, label="", transfer="f32", mesh=None,
+          n_singles=24, n_batches=2):
     from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
 
     tag = f"{label}{mode}" + ("" if transfer == "f32" else f" over the {transfer} wire")
@@ -402,11 +419,11 @@ def serve(model, params, vocab, device, mode, label="", transfer="f32"):
         return {"visual": rng.normal(size=(t, 2048)).astype(np.float32).round(3).tolist(),
                 "audio": rng.normal(size=(t, 128)).astype(np.float32).round(3).tolist()}
 
-    singles = [clip() for _ in range(24)]
-    batches = [[clip() for _ in range(12)] for _ in range(2)]
+    singles = [clip() for _ in range(n_singles)]
+    batches = [[clip() for _ in range(12)] for _ in range(n_batches)]
     cfg = ServiceConfig(max_batch=64, mode=mode, beam_width=W, frame_buckets=BUCKETS,
                         max_caption_len=L, transfer=transfer)
-    svc = CaptionService(model, params, vocab, cfg, device=device)
+    svc = CaptionService(model, params, vocab, cfg, device=device, mesh=mesh)
     server = make_http_server(svc, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -672,16 +689,18 @@ class RecordingWriter:
         pass
 
 
-def smoke_trainer(checkpoint_name, **kw):
-    """A ``Trainer`` (``kw``: its other arguments; by default no log dir and
-    an eval every epoch) whose scalars are recorded and which keeps each
-    eval's captions, ``generated[phase, epoch]`` and
-    ``references[phase, epoch]`` (``{video: [caption]}``), the model, params
-    and loader of the last eval of each phase (``evaluated[phase]``), and
-    the seconds of all its evals (``eval_s``)."""
-    from mvc_tpu_torch.training.trainer import Trainer
+def smoke_trainer(checkpoint_name, base=None, **kw):
+    """A ``Trainer`` (``base``, by default the package's; ``kw``: its other
+    arguments; by default no log dir and an eval every epoch) whose scalars
+    are recorded and which keeps each eval's captions,
+    ``generated[phase, epoch]`` and ``references[phase, epoch]`` (``{video:
+    [caption]}``), the model, params and loader of the last eval of each
+    phase (``evaluated[phase]``), and the seconds of all its evals
+    (``eval_s``)."""
+    if base is None:
+        from mvc_tpu_torch.training.trainer import Trainer as base
 
-    class SmokeTrainer(Trainer):
+    class SmokeTrainer(base):
         def eval(self, model, params, loader, phase, epoch, *a, **k):
             t0 = time.perf_counter()
             out = super().eval(model, params, loader, phase, epoch, *a, **k)
@@ -728,6 +747,7 @@ class GradCapture:
 
     def __init__(self, opt, params):
         self.opt, self.named = opt, named_leaves(params)
+        self.leaves = opt.leaves
 
     def step(self):
         self.grads = {k: p.grad.detach().cpu().clone() for k, p in self.named}
@@ -2321,6 +2341,406 @@ def rehearsal_phase(card, device, captions_csv):
             "dual_greedy": {"rehearsal weights-from-files fit direct eval": g_launches}}
 
 
+# -- 11. the data-parallel mesh -----------------------------------------------
+
+MESH_SHARDS = 4                  # (a), (e): dp=4 over [cuda:0] * 4
+DP_ROWS = 299                    # (c): 2 ranks x 64 rows x 2 steps, then 22 + 21 rows
+DP_BATCH = 64                    # (c): a rank's batch; the global batch is 128
+DP_STEPS = 3
+
+
+def sharded_predict(card, device, model, params, single, sparams):
+    """11 (a): ``predict_tokens(mesh=)`` over dp=4 shards of the one card,
+    each shard on its own stream: dual direct (``dual_greedy.cu``), dual
+    beam W=5 (``beam.cu``), single direct (``greedy.cu``) at B=64 and at
+    B=62 (padded to 64).  Tokens equal the unsharded kernel call's and the
+    plain version's exactly; each call launches its kernel once a shard.
+    Returns the launches of the sharded calls by path."""
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import greedy as gr
+    from mvc_tpu_torch.parallel import make_mesh
+
+    f32, cells = torch.float32, ("LSTM", "LSTM")
+    decs = [params["v_decoder"], params["a_decoder"]]
+    mesh = make_mesh(dp=MESH_SHARDS, devices=[device] * MESH_SHARDS)
+    cases = (
+        ("dual direct", model, params, "direct", dg.dual_greedy_decode,
+         lambda v, a, m: dg.dual_greedy_decode_reference(decs, [v, a], m, L, f32, cells)),
+        ("dual beam", model, params, "beam", bm.beam_decode,
+         lambda v, a, m: bm.beam_decode_reference(decs, [v, a], m, L, W, 0.0, f32, cells)),
+        ("single direct", single, sparams, "direct", gr.greedy_decode,
+         lambda v, a, m: gr.greedy_decode_reference(sparams["decoder"], torch.cat([a, v], -1), m,
+                                                    L, f32, "LSTM")),
+    )
+    launches = {}
+    for b in (B, B - 2):
+        vf, af, mask = decode_inputs(31, device, b=b)
+        for label, m, p, mode, counter, plain in cases:
+            kw = dict(max_caption_len=L, mode=mode, beam_width=W, feat_mask=mask)
+            counter.launches = 0
+            got = m.predict_tokens(p, af, vf, mesh=mesh, **kw)
+            sync(device)
+            n = counter.launches
+            key = f"sharded predict {label} (dp={MESH_SHARDS}, B={b})"
+            launches.setdefault(counter.__name__, {})[key] = n
+            one = m.predict_tokens(p, af, vf, **kw)
+            ref = plain(vf, af, mask)
+            same = torch.equal(got, one) and torch.equal(got, ref)
+            line = (f"[{card}] [mesh a] {label} B={b}: {n} launches over {MESH_SHARDS} shards; "
+                    f"tokens {tuple(got.shape)} equal to the unsharded call and the plain "
+                    f"version: {same}")
+            if b == B:
+                ms_mesh = cuda_ms(lambda: m.predict_tokens(p, af, vf, mesh=mesh, **kw), 5)
+                ms_one = cuda_ms(lambda: m.predict_tokens(p, af, vf, **kw), 5)
+                line += (f"; {MESH_SHARDS} streams x {b // MESH_SHARDS} rows {ms_mesh:.4f} ms, "
+                         f"1 x {b} rows {ms_one:.4f} ms")
+            log(line)
+            if n != MESH_SHARDS or not same:
+                raise SystemExit(f"sharded {label} at B={b}: {n} launches, tokens equal {same}")
+    return launches
+
+
+def cli_fit(data_root, workdir, device, extra):
+    """``python -m mvc_tpu_torch.cli.train`` in-process from ``workdir`` for
+    1 epoch of the dual model with global reconstructors, its trainer a
+    ``smoke_trainer``; returns (history, trainer, seconds)."""
+    from mvc_tpu_torch.cli import train as cli
+    from mvc_tpu_torch.training import trainer as trainer_mod
+
+    real, made = trainer_mod.Trainer, []
+
+    def factory(checkpoint_name, **kw):
+        made.append(smoke_trainer(checkpoint_name, base=real, **kw))
+        return made[-1]
+
+    cwd, data_root = os.getcwd(), os.path.abspath(data_root)
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    trainer_mod.Trainer = factory
+    try:
+        t0 = time.perf_counter()
+        (history,) = cli.main(["--dataset", "MSVD", "--data_root", data_root,
+                               "--epochs", "1", "--batch_size", str(TRAIN_B), "--reconstructor",
+                               "global", "--device", device.type, *extra])
+        sync(device)
+        secs = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer = real
+        os.chdir(cwd)
+    return history, made[0], secs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world1(card, device, ds, vocab_path):
+    """11 (b): ``cli.train --dp 1`` under an NCCL process group of one rank
+    (its step all-reduces counts, gradients and metrics) against the same
+    CLI with no process group: the history within 1e-6 relative, the eval
+    captions against the plain decode (>= 99 %); the train step with and
+    without the mesh and one all-reduce of the model's f32 gradients,
+    CUDA events.  Returns ``dual_greedy.cu``'s launches in the meshed fit."""
+    import torch.distributed as dist
+
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.parallel import distributed, make_global_mesh
+    from mvc_tpu_torch.training import optimizer as opt_lib
+    from mvc_tpu_torch.training.trainer import Trainer
+
+    root = os.path.dirname(ds)
+    plain_h, _, plain_s = cli_fit(root, os.path.join(TRAIN_ROOT, "cli_plain"), device, [])
+    distributed.initialize(f"localhost:{free_port()}", 1, 0, device=device, timeout_s=120)
+    try:
+        if dist.get_backend() != "nccl":
+            raise SystemExit(f"world 1 on the card took {dist.get_backend()}, not nccl")
+        dg.dual_greedy_decode.launches = 0
+        mesh_h, tr, mesh_s = cli_fit(root, os.path.join(TRAIN_ROOT, "cli_dp1"), device,
+                                     ["--dp", "1"])
+        launches = dg.dual_greedy_decode.launches
+        worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                    for key in ("train_loss", "val_loss")
+                    for a, b in zip(mesh_h[key], plain_h[key]) for k in b)
+        log(f"[{card}] [mesh b] cli.train --dp 1 over NCCL (world 1) {mesh_s:.2f} s against no "
+            f"process group {plain_s:.2f} s; losses worst relative difference {worst:.3e} "
+            f"(1e-6); val CIDEr {mesh_h['val_score'][0]['CIDEr']:.6f} / "
+            f"{plain_h['val_score'][0]['CIDEr']:.6f}; dual_greedy launches {launches}")
+        if worst > 1e-6 or launches < 1:
+            raise SystemExit("the NCCL world-1 fit differs from the fit without a process group")
+        model, params, vc = tr.evaluated["val"]
+        cfg = TrainerConfig(batch_size=TRAIN_B)
+        eval_agreement(tr, model, vc, tr._vocab, tr.generated["val", 1],
+                       lambda b: plain_dual_greedy(params, b, cfg), "mesh b val", 0.99)
+
+        batch = first_train_batch(ds, vocab_path)
+        mesh = make_global_mesh()
+        steps = {}
+        for key, m in (("no mesh", None), ("NCCL mesh, world 1", mesh)):
+            t = Trainer("unused.ckpt", log_dir=None, mesh=m)
+            model, params = dual_model(device)
+            step, _ = t._build_train_step(model, cfg)
+            opt = opt_lib.make_optimizer(cfg, params)
+            b = t._put_batch(batch, device)
+            b.pop("_n_real")
+            step(params, opt, b, None)
+            steps[key] = (lambda s=step, p=params, o=opt, x=b: s(p, o, x, None))
+        times = {k: [] for k in steps}
+        for key in (*steps, *reversed(list(steps))):        # in turns: A B B A
+            times[key].append(cuda_ms(steps[key], 5))
+        times = {k: float(np.mean(v)) for k, v in times.items()}
+        n_params = sum(x.numel() for x in opt_lib.tree_leaves(params))
+        flat = torch.ones(n_params, device=device)
+        dist.all_reduce(flat)
+        ar = cuda_ms(lambda: dist.all_reduce(flat), 5)
+        log(f"[{card}] [mesh b] train step B={TRAIN_B} T={b['visual'].shape[1]} "
+            f"L={b['captions'].shape[0]}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f"; NCCL all-reduce (world 1) of {n_params} f32 gradients "
+            f"({4 * n_params / 1e6:.1f} MB): {ar:.4f} ms")
+    finally:
+        distributed.shutdown()
+    return launches
+
+
+def union_batch(parts):
+    """The ranks' host batches side by side, each padded to the longest
+    caption and clip as ``Trainer._agree_lengths`` pads them: the batch one
+    process takes for the ranks' step."""
+    L_ = max(b["captions"].shape[0] for b in parts)
+    T_ = max(b["feat_mask"].shape[1] for b in parts)
+    out = {}
+    for k in ("captions", "audio", "visual", "feat_mask", "sample_mask"):
+        xs = []
+        for b in parts:
+            x = b[k]
+            if k == "captions":
+                x = np.pad(x, ((0, L_ - x.shape[0]), (0, 0)))
+            elif k != "sample_mask":
+                x = np.pad(x, [(0, 0), (0, T_ - x.shape[1])] + [(0, 0)] * (x.ndim - 2))
+            xs.append(x)
+        out[k] = np.concatenate(xs, axis=1 if k == "captions" else 0)
+    return out
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_ms(fn, reps, device):
+    """``cuda_ms`` on a card, host seconds elsewhere."""
+    if device.type == "cuda":
+        return cuda_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def gloo_rank(rank, world, ds, vocab_path, device, rows, batch, steps):
+    """One of 11 (c)'s ranks, all on ``device`` over gloo: ``steps`` train
+    steps of the dual model on the rank's strided shard of the first
+    ``rows`` rows in batches of ``batch`` (the last one padded), then the
+    rank's share of the val eval.  Rank 0 also takes each step as one
+    process over the union batch and decodes the val set alone, and
+    compares."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.data.dataset import (
+        VideoCaptioningDataset,
+        video_dataset_to_video_captions_loader,
+    )
+    from mvc_tpu_torch.data.loader import DataLoader
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.parallel import make_global_mesh
+    from mvc_tpu_torch.training import optimizer as opt_lib
+    from mvc_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    mesh = make_global_mesh()
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    data.metadata = data.metadata[:rows]
+    shards = [list(DataLoader(data, batch_size=batch, shuffle=False, prefetch=0,
+                              process_index=r, process_count=world)) for r in range(world)]
+    cfg = TrainerConfig(batch_size=batch)
+
+    def start(m):
+        model, params = dual_model(device)
+        params["v_decoder"], params["a_decoder"] = spread_bias(
+            [params["v_decoder"], params["a_decoder"]], seed=41)
+        tr = Trainer("unused.ckpt", log_dir=None, mesh=m)
+        step, _ = tr._build_train_step(model, cfg)
+        return model, params, tr, step, GradCapture(opt_lib.make_optimizer(cfg, params), params)
+
+    model, params, tr, step, opt = start(mesh)
+    tr.set_vocab(data.vocab)
+    if rank == 0:
+        _, ref_params, ref_tr, ref_step, ref_opt = start(None)
+    out = {"rank": rank, "loss_rel": [], "grad_worst": [], "param_worst": [], "same": [],
+           "step_ms": []}
+    for k in range(steps):
+        b = tr._put_batch(shards[rank][k], device)
+        b.pop("_n_real")
+        b = tr._agree_lengths(b)
+        sync(device)
+        t0 = time.perf_counter()
+        params, metrics = step(params, opt, b, None)
+        sync(device)
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        h = hashlib.sha256()
+        for _, x in named_leaves(params):
+            h.update(x.detach().cpu().numpy().tobytes())
+        digests = [None] * world
+        dist.all_gather_object(digests, h.hexdigest())
+        out["same"].append(len(set(digests)) == 1)
+        if rank == 0:
+            u = ref_tr._put_batch(union_batch([s[k] for s in shards]), device)
+            u.pop("_n_real")
+            ref_params, ref_m = ref_step(ref_params, ref_opt, u, None)
+            out["loss_rel"].append(abs(float(metrics[0]) - float(ref_m[0]))
+                                   / abs(float(ref_m[0])))
+            g = {n: float((opt.grads[n] - ref_opt.grads[n]).norm()
+                          / ref_opt.grads[n].norm().clamp_min(1e-30)) for n in ref_opt.grads}
+            out["grad_worst"].append(max(g.values()))
+            rp = dict(named_leaves(ref_params))
+            out["param_worst"].append(max(
+                float((x.detach() - rp[n].detach()).abs().max()
+                      / rp[n].detach().abs().max().clamp_min(1e-30))
+                for n, x in named_leaves(params)))
+    out["rows"] = [[int(s[k]["sample_mask"].sum()) for s in shards] for k in range(steps)]
+    n_params = sum(x.numel() for _, x in named_leaves(params))
+    flat = torch.ones(n_params, device=device)
+    dist.all_reduce(flat)
+    out["allreduce_ms"] = device_ms(lambda: dist.all_reduce(flat), 3, device)
+    out["n_params"] = n_params
+
+    val = VideoCaptioningDataset(ds, "MSVD", "val", vocab_path=vocab_path, verbose=False)
+    vc = video_dataset_to_video_captions_loader(val, batch_size=batch, process_index=rank,
+                                                process_count=world)
+    dg.dual_greedy_decode.launches = 0
+    _, _, caps = tr.eval(model, params, vc, "val", 1, get_scores=False)
+    sync(device)
+    out["launches"] = dg.dual_greedy_decode.launches
+    out["n_captions"] = len(caps)
+    if rank == 0:
+        alone = Trainer("unused.ckpt", log_dir=None)
+        alone.set_vocab(data.vocab)
+        _, _, want = alone.eval(model, params,
+                                video_dataset_to_video_captions_loader(val, batch_size=batch),
+                                "val", 1, get_scores=False)
+        out["eval_equal"] = sum(caps.get(v) == c for v, c in want.items())
+        out["eval_total"] = len(want)
+        out["eval_order"] = list(caps) == list(want)
+    return out
+
+
+def gloo_world2(card, ds, vocab_path, device):
+    """11 (c): two spawned ranks on the one card over gloo (NCCL takes one
+    card a rank): each step's loss within 1e-4 relative, and every gradient
+    leaf within 1e-4 relative in norm, of one process's step over the union
+    batch; the ranks' parameters equal after each step; the ranks' evals
+    through ``dual_greedy.cu`` gathered equal to one process's eval.
+    Returns the ranks' eval launches."""
+    from mvc_tpu_torch.parallel.smoke import spawn_ranks
+
+    t0 = time.perf_counter()
+    r0, r1 = spawn_ranks(gloo_rank, 2, os.path.join(TRAIN_ROOT, "gloo_rdzv"),
+                         args=(ds, vocab_path, str(device), DP_ROWS, DP_BATCH, DP_STEPS),
+                         backend="gloo", device=str(device), timeout_s=300)
+    secs = time.perf_counter() - t0
+    log(f"[{card}] [mesh c] 2 ranks over gloo on {device}, {secs:.2f} s with start-up; rows a "
+        f"rank a step {r0['rows']}; loss vs one process {[f'{x:.3e}' for x in r0['loss_rel']]} "
+        f"(1e-4); worst gradient leaf {[f'{x:.3e}' for x in r0['grad_worst']]} (1e-4); worst "
+        f"parameter leaf after the step {[f'{x:.3e}' for x in r0['param_worst']]}; ranks' "
+        f"parameters equal {r0['same']}; step ms rank 0 {[round(x, 2) for x in r0['step_ms']]} "
+        f"rank 1 {[round(x, 2) for x in r1['step_ms']]}; gloo all-reduce of {r0['n_params']} f32 "
+        f"on {device} ({4 * r0['n_params'] / 1e6:.1f} MB): {r0['allreduce_ms']:.4f} / "
+        f"{r1['allreduce_ms']:.4f} ms; eval launches {r0['launches']} + {r1['launches']}, "
+        f"gathered captions equal to one process's {r0['eval_equal']}/{r0['eval_total']} "
+        f"(order {r0['eval_order']})")
+    if not (max(r0["loss_rel"]) <= 1e-4 and max(r0["grad_worst"]) <= 1e-4
+            and all(r0["same"]) and all(r1["same"]) and r0["launches"] >= 1
+            and r1["launches"] >= 1 and r0["eval_equal"] == r0["eval_total"]
+            and r0["eval_order"] and r0["n_captions"] == r0["eval_total"]):
+        raise SystemExit("the gloo world-2 step or eval disagrees with one process")
+    return r0["launches"] + r1["launches"]
+
+
+def mesh_extract(card, device):
+    """11 (d): ``FeatureExtractor(mesh=)`` over [cuda:0] * 2 on phase 8's
+    first 8 clips and weights: features within 1e-5 relative in norm of the
+    meshless extractor's."""
+    from mvc_tpu_torch.extract import FeatureExtractor
+    from mvc_tpu_torch.models import inception_v3 as iv3
+    from mvc_tpu_torch.models import vggish as vg
+    from mvc_tpu_torch.parallel import make_mesh
+
+    iv3_params = iv3.init_inception_v3(torch.Generator().manual_seed(20))
+    vg_params = vg.init_vggish(torch.Generator().manual_seed(21))
+    vg_params["pca"] = seeded_pca(22)
+    clips = [decoded_clip(i) for i in range(EXTRACT_BATCH)]
+    fe = FeatureExtractor(iv3_params, vg_params, device=device)
+    fm = FeatureExtractor(iv3_params, vg_params, device=device,
+                          mesh=make_mesh(dp=2, devices=[device] * 2))
+    runs = []
+    for x in (fe, fm):
+        x._encode_decoded(clips)
+        sync(device)
+        t0 = time.perf_counter()
+        feats = x._encode_decoded(clips)
+        sync(device)
+        runs.append((feats, time.perf_counter() - t0))
+    (want, s1), (got, s2) = runs
+    v_err = max(rel_in_norm(g[0], w[0]) for g, w in zip(got, want))
+    a_err = max(rel_in_norm(g[1], w[1]) for g, w in zip(got, want))
+    log(f"[{card}] [mesh d] FeatureExtractor over 2 shards of {device}, {len(clips)} clips: visual "
+        f"{v_err:.3e}, audio {a_err:.3e} relative in norm of one device's (1e-5); encode "
+        f"{s2:.3f} s against {s1:.3f} s")
+    if v_err > 1e-5 or a_err > 1e-5:
+        raise SystemExit("the meshed extractor's features disagree")
+
+
+def mesh_phase(card, device, ds, vocab_path, vocab, model, params, single, sparams):
+    """11. the data-parallel mesh at full width: (a) ``sharded_predict``,
+    (b) ``nccl_world1``, (c) ``gloo_world2``, (d) ``mesh_extract``, (e)
+    ``CaptionService(mesh=)`` dual direct behind HTTP, 16 requests, the
+    first 8 captions against the plain version.  Returns launches by path
+    for each kernel."""
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    launches = sharded_predict(card, device, model, params, single, sparams)
+    dual = launches["dual_greedy_decode"]
+    dual["train fit cli.train --dp 1, NCCL world 1, eval"] = nccl_world1(card, device, ds,
+                                                                          vocab_path)
+    dual["per-rank eval, 2 gloo ranks on one card"] = gloo_world2(card, ds, vocab_path, device)
+    mesh_extract(card, device)
+    mesh = make_mesh(dp=MESH_SHARDS, devices=[device] * MESH_SHARDS)
+    dg.dual_greedy_decode.launches = 0
+    requests, captions = serve(model, params, vocab, device, "direct", "mesh ", mesh=mesh,
+                               n_singles=16, n_batches=0)
+    dual[f"serve dual direct over dp={MESH_SHARDS}"] = n = dg.dual_greedy_decode.launches
+    log(f"[mesh e] dual_greedy launches during meshed serving: {n}")
+    if n < MESH_SHARDS:
+        raise SystemExit("the meshed service never launched the kernel once a shard")
+    plain = [params["v_decoder"], params["a_decoder"]]
+    check_served(lambda f, m: dg.dual_greedy_decode_reference(plain, f, m, L), requests,
+                 captions, vocab, device, "mesh direct")
+    log(f"[{card}] phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2652,6 +3072,12 @@ def main() -> int:
 
     # -- 10. the real-data rehearsal, weights from files, the native runtime
     p10 = rehearsal_phase(card, device, captions_csv)
+
+    # -- 11. the data-parallel mesh, on the same tree and phase 3's trees
+    p11 = mesh_phase(card, device, ds, vocab_path, vocab, model,
+                     {"v_decoder": decoders[0], "a_decoder": decoders[1],
+                      "v_reconstructor": None, "a_reconstructor": None},
+                     single, {"decoder": s_dec, "reconstructor": None})
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [
@@ -2665,7 +3091,8 @@ def main() -> int:
                               "train fit direct eval": fit_launches["dual_greedy"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("dual_greedy ")},
-                              **p9["dual_greedy"], **p10["dual_greedy"]}},
+                              **p9["dual_greedy"], **p10["dual_greedy"],
+                              **p11["dual_greedy_decode"]}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
@@ -2676,7 +3103,7 @@ def main() -> int:
                               "train fit beam eval": fit_launches["beam"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("beam ")},
-                              **p9["beam"], **p10["beam"]}},
+                              **p9["beam"], **p10["beam"], **p11["beam_decode"]}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",
@@ -2686,7 +3113,7 @@ def main() -> int:
          "launches_by_path": {"serve single direct": s_launches,
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("greedy ")},
-                              **p9["greedy"]}},
+                              **p9["greedy"], **p11["greedy_decode"]}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

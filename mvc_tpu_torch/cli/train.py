@@ -4,7 +4,9 @@
         [--epochs 50] [--batch_size 128] [--lr 1e-4] [--reconstructor none|local|global] \\
         [--video_only] [--single] [--model rnn|transformer] [--eval_mode direct|beam] \\
         [--dtype float32|bfloat16] [--device_feature_cache] [--adam_state_dtype bfloat16] \\
-        [--seed 0] [--init_checkpoint PATH] [--device cuda|cpu]
+        [--seed 0] [--init_checkpoint PATH] [--device cuda|cpu] [--dp -1]
+
+    torchrun --nproc_per_node=N -m mvc_tpu_torch.cli.train ... --dp N
 
 The port of ``train.py``.  With none of ``--reconstructor``,
 ``--video_only`` or ``--single`` it runs the reference's six-experiment
@@ -21,8 +23,17 @@ package or of the reference (a torch ``.ckpt``, converted by
 cpu`` is given; the per-epoch eval decodes through ``csrc/dual_greedy.cu``
 or, with ``--single``, ``csrc/greedy.cu`` (``--eval_mode direct``) or
 ``csrc/beam.cu`` (``beam``) there; the transformer decodes in plain
-PyTorch.  ``--dp/--tp/--sp`` name the mesh, which is not ported yet, and
-raise ``NotImplementedError``.
+PyTorch.
+
+As ``train.py`` does, it always trains on a mesh (``parallel/mesh.py``):
+``--dp`` data-parallel ranks (-1: every rank).  Run alone it is one rank,
+a 1x1 mesh.  Under ``torchrun`` (or the JAX package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``)
+each process joins the process group first (``parallel/distributed.py``:
+NCCL with one card per rank, gloo with ``--device cpu``), trains on its
+card over its strided share of the data and all-reduces its gradients;
+rank 0 writes the checkpoints and the history.  ``--tp``/``--sp`` above 1
+raise ``NotImplementedError``: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,9 +41,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-_UNPORTED = ("dp", "tp", "sp")
-
 
 def build_experiments(args):
     """The reference's experiment sweep (``train.py:24-44``)."""
@@ -104,31 +112,39 @@ def parse_args(argv=None):
                     help="accepted for the JAX command line; the CUDA kernels always run on "
                          "the card")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # not ported yet: given, they raise
-    ap.add_argument("--dp", default=None, type=int)
-    ap.add_argument("--tp", default=None, type=int)
-    ap.add_argument("--sp", default=None, type=int)
+    ap.add_argument("--dp", default=-1, type=int,
+                    help="data-parallel ranks of the mesh (-1: every rank)")
+    ap.add_argument("--tp", default=1, type=int, help="tensor-parallel axis (1 only: not ported)")
+    ap.add_argument("--sp", default=1, type=int,
+                    help="sequence-parallel axis (1 only: not ported)")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     """Runs the selected experiments; returns their histories in order."""
     args = parse_args(argv)
-    given = [f"--{name}" for name in _UNPORTED if getattr(args, name) is not None]
+    given = [f"--{name} {getattr(args, name)}" for name in ("tp", "sp") if getattr(args, name) > 1]
     if given:
-        raise NotImplementedError(f"{', '.join(given)}: not ported yet (ROADMAP.md §1)")
+        raise NotImplementedError(f"{', '.join(given)}: tensor and sequence parallelism are not "
+                                  "ported yet (ROADMAP.md §1)")
 
     import torch
 
     from mvc_tpu_torch.config import TrainerConfig
     from mvc_tpu_torch.data import Vocabulary, get_loader
     from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual, TransformerCaptioning
+    from mvc_tpu_torch.parallel import distributed, make_mesh
     from mvc_tpu_torch.training.trainer import Trainer
     from mvc_tpu_torch.utils.checkpoint_convert import load_params_checkpoint
     from mvc_tpu_torch.utils.device import resolve_device
     from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
 
-    device = resolve_device(args.device)
+    owns_group = distributed.process_group() is None
+    rank, world = distributed.initialize(device="cpu" if args.device == "cpu" else None)
+    device = (distributed.local_devices()[0] if distributed.process_group() is not None
+              else resolve_device(args.device))
+    mesh = make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, devices=[device])
+    print(f"Mesh: {mesh}")
     dataset_folder = os.path.join(args.data_root, args.dataset)
     vocab_path = os.path.join(dataset_folder, "metadata", "vocab.json")
     if not os.path.isfile(vocab_path):
@@ -164,7 +180,8 @@ def main(argv=None):
         loader_kwargs = dict(root_dir=dataset_folder, dataset=args.dataset,
                              batch_size=cfg.batch_size, vocab_path=vocab_path,
                              video_only=video_only, frame_buckets=tuple(cfg.frame_buckets),
-                             caption_buckets=tuple(cfg.caption_buckets))
+                             caption_buckets=tuple(cfg.caption_buckets),
+                             process_index=rank, process_count=world)
         train_loader, _ = get_loader(split=args.split_train, **loader_kwargs)
         val_loader, _ = get_loader(split="val", **loader_kwargs)
         # the reference aliases test to val
@@ -187,11 +204,14 @@ def main(argv=None):
         checkpoint_name = os.path.join("checkpoints", args.dataset,
                                        exp["checkpoint_name"] + ".ckpt")
         trainer = Trainer(checkpoint_name=checkpoint_name, log_dir=exp["log_dir"],
-                          eval_freq=args.eval_freq)
+                          eval_freq=args.eval_freq, mesh=mesh)
         _, _, history = trainer.fit(model, params, train_loader, val_loader, test_loader, cfg)
-        with open(checkpoint_name.replace(".ckpt", ".json"), "w") as f:
-            json.dump(history, f)
+        if rank == 0:
+            with open(checkpoint_name.replace(".ckpt", ".json"), "w") as f:
+                json.dump(history, f)
         histories.append(history)
+    if owns_group:
+        distributed.shutdown()
     return histories
 
 

@@ -1,13 +1,13 @@
 """Configuration: the port's own copy of the special ids, the decoder,
-reconstructor, trainer and model configs (``mvc_tpu/config.py:24-81,
-84-162, 184-195``) and the transformer's (``mvc_tpu/models/transformer.py:32-45``),
+reconstructor, trainer, mesh and model configs (``mvc_tpu/config.py:24-81,
+84-195``) and the transformer's (``mvc_tpu/models/transformer.py:32-45``),
 with the same default values."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 # Special token ids — identical to the reference Vocabulary.
 PAD_ID = 0
@@ -117,6 +117,24 @@ class TrainerConfig:
     eval_mode: str = "direct"          # "direct" | "beam"
     eval_beam_width: int = 5
     eval_beam_alpha: float = 0.0
+
+
+@dataclass
+class MeshConfig:
+    """The device mesh (``parallel/mesh.py``): ``dp`` data-parallel shards
+    (-1 = every device), ``tp`` and ``sp`` as in the JAX package (only
+    prediction uses ``tp``, as extra batch shards; training takes
+    ``tp = sp = 1``)."""
+
+    dp: int = -1
+    tp: int = 1
+    sp: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The axes of the mesh ``mesh_from_config`` builds: ``sp`` is a third
+        axis only when above 1."""
+        return ("dp", "tp", "sp") if self.sp > 1 else ("dp", "tp")
 
 
 @dataclass

@@ -110,10 +110,13 @@ class VideoCaptionsDataset:
 def video_dataset_to_video_captions_loader(dataset: VideoCaptioningDataset,
                                            batch_size: int = 32, normalize: bool = False,
                                            video_only: bool = False,
-                                           frame_buckets: Sequence[int] = (8, 16, 32, 48, 64)):
+                                           frame_buckets: Sequence[int] = (8, 16, 32, 48, 64),
+                                           process_index: int = 0, process_count: int = 1):
     """Group a (video, caption)-pair dataset by video, videos in first-seen
-    order, and wrap it in an unshuffled eval loader; ground-truth captions
-    pass through ``apply_vocab`` so OOV words become ``"<UNK>"``."""
+    order, and wrap it in an unshuffled eval loader (rank
+    ``process_index`` of ``process_count`` reads its strided share of the
+    videos); ground-truth captions pass through ``apply_vocab`` so OOV
+    words become ``"<UNK>"``."""
     from mvc_tpu_torch.data.loader import EvalDataLoader
 
     vid_captions: Dict[str, List[str]] = {}
@@ -121,7 +124,8 @@ def video_dataset_to_video_captions_loader(dataset: VideoCaptioningDataset,
         vid_captions.setdefault(video_id, []).append(dataset.vocab.apply_vocab(caption))
     eval_dataset = VideoCaptionsDataset(dataset.root_dir, vid_captions, normalize=normalize,
                                         video_only=video_only)
-    return EvalDataLoader(eval_dataset, batch_size=batch_size, frame_buckets=frame_buckets)
+    return EvalDataLoader(eval_dataset, batch_size=batch_size, frame_buckets=frame_buckets,
+                          process_index=process_index, process_count=process_count)
 
 
 # ---------------------------------------------------------------- collation

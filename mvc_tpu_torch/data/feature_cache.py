@@ -47,13 +47,17 @@ class DeviceFeatureCache:
     the host, round to nearest even), or int8 plus f32 scales
     (``quantize_int8``).  ``row_of`` maps video_id -> row; ``caption_rows``
     and ``caption_ids`` encode every (video, caption) item once for the
-    loader's index path."""
+    loader's index path.
+
+    With ``mesh`` the cache lies on the rank's device (``mesh.device``):
+    every rank holds all of it, as the JAX package replicates it over the
+    mesh, because a rank's index batches address global rows."""
 
     def __init__(self, dataset, dtype: Optional[str] = "bfloat16", device="cpu",
-                 frame_buckets=None):
+                 frame_buckets=None, mesh=None):
         if dtype not in _STORE_DTYPES:
             raise ValueError(f"cache dtype must be float32, bfloat16 or int8, got {dtype!r}")
-        device = torch.device(device)
+        device = mesh.device if mesh is not None else torch.device(device)
         video_ids = list(dict.fromkeys(vid for vid, _ in dataset.metadata))
         self.row_of: Dict[str, int] = {v: i for i, v in enumerate(video_ids)}
         feats = [load_clip_features(dataset.root_dir, vid, normalize=dataset.normalize,

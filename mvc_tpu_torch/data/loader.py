@@ -1,7 +1,9 @@
-"""Host-side batch loaders (``mvc_tpu/data/loader.py``), single process:
-numpy-seeded epoch order, bucketed collation (or, with a device feature
-cache attached, caption ids and cache rows only) and a prefetch thread that
-overlaps feature loading with the step on the card."""
+"""Host-side batch loaders (``mvc_tpu/data/loader.py``): numpy-seeded epoch
+order, bucketed collation (or, with a device feature cache attached,
+caption ids and cache rows only) and a prefetch thread that overlaps
+feature loading with the step on the card.  ``process_index`` /
+``process_count`` give each data-parallel rank a disjoint strided slice
+of the dataset."""
 
 from __future__ import annotations
 
@@ -57,14 +59,18 @@ class DataLoader:
     """Shuffling, bucketing train loader over (video, caption) pairs.  The
     epoch order is ``np.random.default_rng(seed)``'s shuffle, as in the JAX
     loader; ``bucket_by_length`` sorts each window of 16 batches by frame
-    count (stable)."""
+    count (stable).  Rank ``process_index`` of ``process_count`` reads the
+    rows ``process_index::process_count`` and shuffles them."""
 
     def __init__(self, dataset: VideoCaptioningDataset, batch_size: int = 32,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = False,
                  frame_buckets: Sequence[int] = (8, 16, 32, 48, 64),
                  caption_buckets: Sequence[int] = (12, 16, 20, 26, 34),
                  pad_partial_batches: bool = True, prefetch: int = 2,
-                 bucket_by_length: bool = False):
+                 bucket_by_length: bool = False, process_index: int = 0,
+                 process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in [0, {process_count})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -74,6 +80,8 @@ class DataLoader:
         self.pad_partial_batches = pad_partial_batches
         self.prefetch = prefetch
         self.bucket_by_length = bucket_by_length
+        self.process_index = process_index
+        self.process_count = process_count
         self._rng = np.random.default_rng(seed)
         self._lengths = None
         self.feature_cache = None
@@ -84,8 +92,12 @@ class DataLoader:
         (``data.feature_cache.DeviceFeatureCache``)."""
         self.feature_cache = cache
 
+    def _my_indices(self) -> np.ndarray:
+        """This process's disjoint strided slice of the dataset."""
+        return np.arange(self.process_index, len(self.dataset), self.process_count)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._my_indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -105,7 +117,7 @@ class DataLoader:
         return self._lengths
 
     def _epoch_order(self) -> np.ndarray:
-        order = np.arange(len(self.dataset))
+        order = self._my_indices()
         if self.shuffle:
             self._rng.shuffle(order)
         if self.bucket_by_length:
@@ -142,24 +154,35 @@ class DataLoader:
 
 
 class EvalDataLoader:
-    """Unshuffled per-video eval loader."""
+    """Unshuffled per-video eval loader; rank ``process_index`` of
+    ``process_count`` reads the videos ``process_index::process_count``
+    (each rank decodes its own videos in the trainer's eval)."""
 
     def __init__(self, dataset: VideoCaptionsDataset, batch_size: int = 32,
                  frame_buckets: Sequence[int] = (8, 16, 32, 48, 64),
-                 pad_partial_batches: bool = True, prefetch: int = 2):
+                 pad_partial_batches: bool = True, prefetch: int = 2,
+                 process_index: int = 0, process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in [0, {process_count})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.frame_buckets = tuple(frame_buckets)
         self.pad_partial_batches = pad_partial_batches
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
+
+    def _my_indices(self) -> np.ndarray:
+        return np.arange(self.process_index, len(self.dataset), self.process_count)
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return (len(self._my_indices()) + self.batch_size - 1) // self.batch_size
 
     def _iter_batches(self):
         bs = self.batch_size
-        for start in range(0, len(self.dataset), bs):
-            items = [self.dataset[i] for i in range(start, min(start + bs, len(self.dataset)))]
+        mine = self._my_indices()
+        for start in range(0, len(mine), bs):
+            items = [self.dataset[int(i)] for i in mine[start:start + bs]]
             yield collate_eval_batch(items, frame_buckets=self.frame_buckets,
                                      pad_batch_to=bs if self.pad_partial_batches else None)
 
@@ -173,8 +196,10 @@ def get_loader(root_dir: str, dataset: str = "MSVD", split: str = "train", batch
                shuffle: bool = True, vocab_path: Optional[str] = None, normalize: bool = False,
                video_only: bool = False, frame_buckets: Sequence[int] = (8, 16, 32, 48, 64),
                caption_buckets: Sequence[int] = (12, 16, 20, 26, 34), seed: int = 0,
-               verbose: bool = True, bucket_by_length: bool = False):
-    """The data entry point.  Returns ``(loader, dataset)``."""
+               verbose: bool = True, bucket_by_length: bool = False, process_index: int = 0,
+               process_count: int = 1):
+    """The data entry point.  Returns ``(loader, dataset)``; the loader reads
+    rank ``process_index``'s strided slice of ``process_count``."""
     if verbose:
         print("-" * 50)
         print("Initializing loader:")
@@ -186,5 +211,6 @@ def get_loader(root_dir: str, dataset: str = "MSVD", split: str = "train", batch
                                 normalize=normalize, video_only=video_only, verbose=verbose)
     loader = DataLoader(ds, batch_size=batch_size, shuffle=shuffle, seed=seed,
                         frame_buckets=frame_buckets, caption_buckets=caption_buckets,
-                        bucket_by_length=bucket_by_length)
+                        bucket_by_length=bucket_by_length, process_index=process_index,
+                        process_count=process_count)
     return loader, ds

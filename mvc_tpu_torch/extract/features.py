@@ -17,7 +17,11 @@ src/extract_features.py:140-161).  Here:
   features exist (:153-156)
 
 The encoders run on ``device`` in full float32 (no TF32) and hand back
-float32 numpy arrays.
+float32 numpy arrays.  With ``mesh`` (``parallel/mesh.py``) the padded
+frame and example batches are rounded up to a multiple of the mesh's
+devices and split over them in order, each shard's CNN and VGGish on its
+own device (``ops/sharded.map_shards``; the weights copied to each device
+once), as the JAX extractor shards over every mesh device.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from mvc_tpu_torch.extract.encoders import visual_backbone
 from mvc_tpu_torch.extract.video_io import load_audio, load_frames
 from mvc_tpu_torch.models import inception_v3 as iv3
 from mvc_tpu_torch.models import vggish as vg
+from mvc_tpu_torch.ops import sharded
 from mvc_tpu_torch.ops.logmel import log_mel_examples_batch, num_examples_for, samples_for
 from mvc_tpu_torch.utils.device import resolve_device
 from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
@@ -44,6 +49,11 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return ((n + buckets[-1] - 1) // buckets[-1]) * buckets[-1]
+
+
+def _round_to_shards(n: int, shards: int) -> int:
+    """A padded batch rounded up to divide the mesh's shards."""
+    return ((n + shards - 1) // shards) * shards
 
 
 class FeatureExtractor:
@@ -69,13 +79,15 @@ class FeatureExtractor:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("FeatureExtractor(mesh=...) is not ported yet; extraction "
-                                      "runs on one device")
         # cv2 decode scales with real cores; oversubscribing a core slows it
         if decode_workers is None:
             decode_workers = min(8, os.cpu_count() or 1)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._shard_devices = mesh.local().devices if mesh is not None else [self.device]
+        if self._shard_devices[0] != self.device:
+            raise ValueError(f"the mesh's first device {self._shard_devices[0]} is not the "
+                             f"extractor's {self.device}")
         self.visual_model = visual_model
         self.inception_params, self.frame_size, self._visual_features = visual_backbone(
             visual_model, inception_params, self.device, seed)
@@ -96,26 +108,41 @@ class FeatureExtractor:
         return frames, wav
 
     # ------------------------------------------------------------ encode
+    def _sharded(self, fn, params, x: torch.Tensor) -> torch.Tensor:
+        """``fn(params, x)`` over the mesh's devices, one row block each (the
+        whole batch on ``device`` without a mesh)."""
+        if self.mesh is None:
+            return fn(params, x)
+        return sharded.map_shards(
+            self._shard_devices, lambda i, d, blocks: fn(sharded.replica(params, d), blocks[0]),
+            [x], self.device)
+
     def _encode_frame_stack(self, all_frames: np.ndarray) -> torch.Tensor:
         """[M, H, W, 3] uint8 -> [M, D] visual features on the device; the
-        batch is padded with zero frames to its bucket, whose rows are
-        computed and dropped."""
+        batch is padded with zero frames to its bucket (a multiple of the
+        mesh's devices), whose rows are computed and dropped."""
         m = all_frames.shape[0]
-        frames = torch.zeros((_bucket(m, self.frame_buckets), *all_frames.shape[1:]),
-                             dtype=torch.uint8, device=self.device)
+        target = _round_to_shards(_bucket(m, self.frame_buckets), len(self._shard_devices))
+        frames = torch.zeros((target, *all_frames.shape[1:]), dtype=torch.uint8,
+                             device=self.device)
         frames[:m] = torch.from_numpy(all_frames).to(self.device)
-        x = iv3.imagenet_normalize(frames, scale_to_unit=self.scale_to_unit)
-        return self._visual_features(self.inception_params, x)[:m]
+
+        def encode(params, frames_u8):
+            x = iv3.imagenet_normalize(frames_u8, scale_to_unit=self.scale_to_unit)
+            return self._visual_features(params, x)
+
+        return self._sharded(encode, self.inception_params, frames)[:m]
 
     def _encode_audio_stack(self, examples: torch.Tensor) -> torch.Tensor:
-        """[M, 96, 64] -> [M, 128] on the device, padded to an audio bucket."""
+        """[M, 96, 64] -> [M, 128] on the device, padded to an audio bucket
+        (a multiple of the mesh's devices)."""
         m = examples.shape[0]
         if m == 0:
             return torch.zeros((0, 128), device=self.device)
-        padded = torch.zeros((_bucket(m, self.audio_buckets), *examples.shape[1:]),
-                             device=self.device)
+        target = _round_to_shards(_bucket(m, self.audio_buckets), len(self._shard_devices))
+        padded = torch.zeros((target, *examples.shape[1:]), device=self.device)
         padded[:m] = examples
-        return vg.vggish_embeddings(self.vggish_params, padded)[:m]
+        return self._sharded(vg.vggish_embeddings, self.vggish_params, padded)[:m]
 
     # ------------------------------------------------------------ public
     def extract(self, filename: str, fps: Optional[float] = None, to_numpy: bool = True):

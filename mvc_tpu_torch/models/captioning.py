@@ -33,7 +33,7 @@ from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models import decoder as dec
 from mvc_tpu_torch.models import reconstructor as rec
 from mvc_tpu_torch.models import rnn
-from mvc_tpu_torch.ops import quant
+from mvc_tpu_torch.ops import quant, sharded
 from mvc_tpu_torch.ops.beam import beam_decode
 from mvc_tpu_torch.ops.beam import max_frames as beam_max_frames
 from mvc_tpu_torch.ops.beam import max_width as beam_max_width
@@ -219,7 +219,7 @@ class AVCaptioning:
                        max_caption_len: int = 30, mode: str = "direct",
                        beam_alpha: float = 0.0, beam_width: int = 5,
                        feat_mask: Optional[torch.Tensor] = None,
-                       stop_at_all_eos: bool = False) -> torch.Tensor:
+                       stop_at_all_eos: bool = False, mesh=None) -> torch.Tensor:
         """Token ids of the decoder over ``[audio | visual]``.  Direct mode:
         [B, max_caption_len], column 0 = 0, greedy.  Beam mode:
         [B, max_caption_len + 2], column 0 = SOS.
@@ -230,14 +230,25 @@ class AVCaptioning:
         ``decode_greedy_tokens`` or ``beam_search``.  ``stop_at_all_eos``
         applies to direct mode only.  An int8-quantized decoder
         (``ops/quant.py``) is dequantized once, in the model dtype, and then
-        takes the same route."""
+        takes the same route.  With ``mesh`` the batch is split over its
+        devices and each shard takes that route on its own
+        (``ops/sharded.mesh_decode``)."""
         if mode not in ("direct", "beam"):
             raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
         if visual.device != self.device or audio.device != self.device:
             raise ValueError(f"features must be on the model's device {self.device}")
+
+        def local(decoder, feats, mask):
+            return self._predict_local(decoder, feats[0], max_caption_len, mode, beam_alpha,
+                                       beam_width, mask, stop_at_all_eos)
+
+        return sharded.mesh_decode(mesh, local, params["decoder"],
+                                   [torch.cat([audio, visual], dim=-1)], feat_mask)
+
+    def _predict_local(self, decoder, features, max_caption_len, mode, beam_alpha, beam_width,
+                       feat_mask, stop_at_all_eos) -> torch.Tensor:
         cfg, dtype = self.decoder_config, self.dtype
-        features = torch.cat([audio, visual], dim=-1)
-        decoder = quant.dequantize_tree(params["decoder"], dtype)
+        decoder = quant.dequantize_tree(decoder, dtype)
         if features.device.type == "cuda":
             decoder = dec.cast_params_for_decode(decoder, dtype)
             if mode == "beam":
@@ -365,7 +376,7 @@ class AVCaptioningDual:
                        max_caption_len: int = 30, mode: str = "direct",
                        beam_alpha: float = 0.0, beam_width: int = 5,
                        feat_mask: Optional[torch.Tensor] = None,
-                       stop_at_all_eos: bool = False) -> torch.Tensor:
+                       stop_at_all_eos: bool = False, mesh=None) -> torch.Tensor:
         """Token ids.  Direct mode: [B, max_caption_len], column 0 = 0; each
         decoder free-runs on its own argmax and the fused log-probs are
         argmaxed.  Beam mode: [B, max_caption_len + 2], column 0 = SOS; one
@@ -376,11 +387,23 @@ class AVCaptioningDual:
         CPU tensors run ``dual_greedy_tokens_fused`` or ``beam_search``.
         ``stop_at_all_eos`` applies to direct mode only.  Int8-quantized
         decoders (``ops/quant.py``) are dequantized once, in the model dtype,
-        and then take the same route."""
+        and then take the same route.  With ``mesh`` the batch is split
+        over its devices and each shard takes that route on its own
+        (``ops/sharded.mesh_decode``)."""
         if mode not in ("direct", "beam"):
             raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
         if visual.device != self.device or audio.device != self.device:
             raise ValueError(f"features must be on the model's device {self.device}")
+
+        def local(decoders, feats, mask):
+            return self._predict_local(decoders, feats[1], feats[0], max_caption_len, mode,
+                                       beam_alpha, beam_width, mask, stop_at_all_eos)
+
+        decoders = {k: params[k] for k in ("v_decoder", "a_decoder")}
+        return sharded.mesh_decode(mesh, local, decoders, [visual, audio], feat_mask)
+
+    def _predict_local(self, params, audio, visual, max_caption_len, mode, beam_alpha,
+                       beam_width, feat_mask, stop_at_all_eos) -> torch.Tensor:
         rnn_types = (self.v_config.rnn_type, self.a_config.rnn_type)
         params = {k: quant.dequantize_tree(params[k], self.dtype)
                   for k in ("v_decoder", "a_decoder")}

@@ -36,6 +36,7 @@ from mvc_tpu_torch.models import beam as beam_mod
 from mvc_tpu_torch.models.captioning import captions_from_tokens
 from mvc_tpu_torch.models.decoder import cast_params_for_decode
 from mvc_tpu_torch.models.initializers import embedding_params, linear_params
+from mvc_tpu_torch.ops import sharded
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -184,6 +185,14 @@ class TransformerCaptioning:
         self.device = resolve_device(device)
         self._pe = torch.from_numpy(positional_encoding(self.cfg.max_len, self.cfg.d_model)).to(
             self.device)
+        self._pe_by_device = {self.device: self._pe}
+
+    def _pe_on(self, device: torch.device) -> torch.Tensor:
+        """The positional encoding on ``device`` (a mesh shard's), copied once."""
+        pe = self._pe_by_device.get(device)
+        if pe is None:
+            pe = self._pe_by_device[device] = self._pe.to(device)
+        return pe
 
     def init(self, gen: torch.Generator):
         """Random parameters from ``gen`` (a CPU generator), on the model's
@@ -210,8 +219,9 @@ class TransformerCaptioning:
         if T > self.cfg.max_len:
             raise ValueError(f"a clip of T={T} frames is longer than the positional "
                              f"encoding's {self.cfg.max_len}")
-        v = _proj(params["visual_in"], visual.to(self.dtype)) + self._pe[:T]
-        a = _proj(params["audio_in"], audio.to(self.dtype)) + self._pe[:T]
+        pe = self._pe_on(visual.device)
+        v = _proj(params["visual_in"], visual.to(self.dtype)) + pe[:T]
+        a = _proj(params["audio_in"], audio.to(self.dtype)) + pe[:T]
         enc_mask = feat_mask[:, None, None, :] if feat_mask is not None else None
         for vl, al in zip(params["v_encoder"], params["a_encoder"]):
             v = _encoder_layer(vl, v, self.cfg, enc_mask)
@@ -256,13 +266,14 @@ class TransformerCaptioning:
                     for lp in layers]
         return kv(params["a_decoder"], a_mem), kv(params["v_decoder"], v_mem)
 
-    def _empty_caches(self, shape) -> List[Dict[str, torch.Tensor]]:
-        return [{n: torch.zeros(shape, dtype=self.dtype, device=self._pe.device) for n in "kv"}
+    def _empty_caches(self, shape, device) -> List[Dict[str, torch.Tensor]]:
+        return [{n: torch.zeros(shape, dtype=self.dtype, device=device) for n in "kv"}
                 for _ in range(self.cfg.num_layers)]
 
     def _step(self, params, prev, t: int, v_caches, a_caches, v_kv, a_kv, cross_mask):
         """Position ``t`` through both decoder stacks: fused log-probs [N, V]."""
-        x_t = params["embedding"]["table"][prev].to(self.dtype)[:, None, :] + self._pe[t:t + 1]
+        x_t = (params["embedding"]["table"][prev].to(self.dtype)[:, None, :]
+               + self._pe_on(prev.device)[t:t + 1])
         xv, xa = x_t, x_t
         for i in range(self.cfg.num_layers):
             xv = _decoder_layer_step(params["v_decoder"][i], xv, t, v_caches[i], v_kv[i],
@@ -274,21 +285,33 @@ class TransformerCaptioning:
     @torch.no_grad()
     def predict_tokens(self, params, audio, visual, max_caption_len: int = 30,
                        mode: str = "direct", beam_alpha: float = 0.0, beam_width: int = 5,
-                       feat_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       feat_mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
         """Token ids.  Direct: [B, max_caption_len], column 0 = SOS, greedy
         with K/V caches.  Beam: [B, max_caption_len + 2], column 0 = SOS,
-        ``models/beam.beam_search`` over cached steps."""
+        ``models/beam.beam_search`` over cached steps.  With ``mesh`` the
+        batch is split over its devices (``ops/sharded.mesh_decode``)."""
         if mode not in ("direct", "beam"):
             raise ValueError(f"mode must be 'direct' or 'beam', got {mode}")
         if visual.device != self.device or audio.device != self.device:
             raise ValueError(f"features must be on the model's device {self.device}")
+
+        def local(p, feats, mask):
+            return self._predict_local(p, feats[0], feats[1], max_caption_len, mode, beam_alpha,
+                                       beam_width, mask)
+
+        return sharded.mesh_decode(mesh, local, params, [audio, visual], feat_mask)
+
+    def _predict_local(self, params, audio, visual, max_caption_len, mode, beam_alpha,
+                       beam_width, feat_mask) -> torch.Tensor:
         params = cast_params_for_decode(params, self.dtype)
         a_mem, v_mem, cross_mask = self._encode(params, audio, visual, feat_mask)
         a_kv, v_kv = self._cross_kv(params, a_mem, v_mem)
         B, D, L = visual.shape[0], self.cfg.d_model, int(max_caption_len)
         if mode == "direct":
-            v_caches, a_caches = self._empty_caches((B, L, D)), self._empty_caches((B, L, D))
-            tokens = torch.full((B, L), SOS_ID, dtype=torch.int32, device=self.device)
+            dev = visual.device
+            v_caches, a_caches = (self._empty_caches((B, L, D), dev),
+                                  self._empty_caches((B, L, D), dev))
+            tokens = torch.full((B, L), SOS_ID, dtype=torch.int32, device=dev)
             prev = tokens[:, 0].long()
             for t in range(L - 1):
                 logp = self._step(params, prev, t, v_caches, a_caches, v_kv, a_kv, cross_mask)
@@ -314,7 +337,8 @@ class TransformerCaptioning:
                               v_kv, a_kv, c_rep)
             return logp.reshape(B, W, -1), (v_caches, a_caches, t + 1)
 
-        init = (self._empty_caches((B, W, Lh, D)), self._empty_caches((B, W, Lh, D)), 0)
+        init = (self._empty_caches((B, W, Lh, D), visual.device),
+                self._empty_caches((B, W, Lh, D), visual.device), 0)
         return beam_mod.beam_search(step_fn, init, B, self.vocab_size, max_caption_len=L,
                                     beam_alpha=beam_alpha, beam_width=W)
 

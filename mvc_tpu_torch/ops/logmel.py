@@ -11,7 +11,8 @@ The AudioSet VGGish input spec, as the JAX package computes it:
 
 The waveform is padded or truncated to a whole number of examples, and a
 batch of padded waveforms goes through in one pass on whatever device it
-lies on.
+lies on.  The STFT and the mel projection run in float64 (see
+``log_mel_spectrogram``).
 """
 
 from __future__ import annotations
@@ -71,9 +72,15 @@ def stft_magnitude(x: torch.Tensor, window: int = STFT_WINDOW, hop: int = STFT_H
 
 
 def log_mel_spectrogram(waveform: torch.Tensor) -> torch.Tensor:
-    """[..., n_samples] @16kHz -> [..., n_frames, 64] log-mel."""
-    mag = stft_magnitude(waveform)
-    mel = mag @ torch.as_tensor(mel_filterbank(), device=waveform.device)
+    """[..., n_samples] @16kHz -> [..., n_frames, 64] log-mel.
+
+    The spectrum and the mel projection run in float64 and are rounded to
+    the waveform's dtype once, before the log: a row's result then depends
+    neither on the batch it sits in nor on which matmul kernel the backend
+    picks for the batch's shape."""
+    mag = stft_magnitude(waveform.double())
+    fb = torch.as_tensor(mel_filterbank(), dtype=torch.float64, device=waveform.device)
+    mel = (mag @ fb).to(waveform.dtype)
     return torch.log(mel + LOG_OFFSET)
 
 

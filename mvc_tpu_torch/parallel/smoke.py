@@ -1,0 +1,157 @@
+"""The multi-process smoke path's shared pieces (``mvc_tpu/parallel/smoke.py``)
+and the rank launcher the tests and ``chip_smoke.py`` share.
+
+``cli/multihost_worker.py`` (one rank) and its single-process expectation
+run literally the same model, loss and step, so the comparison means
+something.  ``spawn_ranks`` starts N ranks of one function in fresh
+interpreters (``spawn``, never ``fork``: CUDA may already be initialized
+in the caller), joined through a ``file://`` rendezvous in a directory of
+the caller's, and kills them all at a deadline so a hang fails fast.
+"""
+
+from __future__ import annotations
+
+import math
+import multiprocessing as mp
+import os
+import pickle
+import time
+import traceback
+from typing import Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from mvc_tpu_torch.config import DecoderConfig
+from mvc_tpu_torch.training import losses as loss_lib
+
+SMOKE_LAMBDAS = dict(reg_lambda=0.0005, audio_recon_lambda=0.00005, visual_recon_lambda=0.5)
+
+
+def make_smoke_model(vocab_size: int, a_dim: int, v_dim: int, device="cpu"):
+    """Tiny dual captioner (hidden 16 / emb 8 / attn 6, global recon)."""
+    from mvc_tpu_torch.models import AVCaptioningDual
+
+    small = dict(rnn_hidden_size=16, embedding_size=8, attn_size=6)
+    return AVCaptioningDual(vocab_size=vocab_size, teacher_forcing_ratio=1.0,
+                            reconstructor_type="global",
+                            visual_decoder_config=DecoderConfig(in_feature_size=v_dim, **small),
+                            audio_decoder_config=DecoderConfig(in_feature_size=a_dim, **small),
+                            device=device)
+
+
+def make_smoke_loss():
+    return loss_lib.ModalityWiseReconstructionLossBuilder(rec_type="global", **SMOKE_LAMBDAS)
+
+
+def make_smoke_train_step(model, loss_fn, mesh=None):
+    """step(params, opt, batch, gen) -> (loss, grad_norm, param_norm), the
+    cross-process equivalence observables, as floats.  With a mesh whose
+    process group holds several ranks, each rank's batch is its shard:
+    the batch means divide by the counts over the ranks and the gradients
+    and the loss are summed over them (``training/trainer.py``'s step)."""
+    group = mesh.group if mesh is not None and mesh.world_size > 1 else None
+
+    def step(params, opt, batch, gen):
+        fm = batch["feat_mask"]
+        counts = None
+        if group is not None:
+            counts = loss_lib.global_counts(batch["captions"], None, fm,
+                                            batch["audio"].shape[1], group, mesh.world_size)
+        outputs, a_rec, v_rec = model.forward(params, batch["audio"], batch["visual"],
+                                              batch["captions"], gen=gen, feat_mask=fm)
+        loss = loss_fn(outputs, batch["captions"], batch["audio"], a_rec, batch["visual"],
+                       v_rec, feat_mask=fm, counts=counts)[0]
+        loss.backward()
+        loss = loss.detach().reshape(1)
+        if group is not None:
+            sum_over_ranks([p.grad for p in opt.leaves] + [loss], group)
+        gnorm = math.sqrt(sum(float((p.grad.double() ** 2).sum()) for p in opt.leaves))
+        opt.step()
+        pnorm = math.sqrt(sum(float((p.detach().double() ** 2).sum()) for p in opt.leaves))
+        return float(loss), gnorm, pnorm
+
+    return step
+
+
+def sum_over_ranks(tensors: Sequence[torch.Tensor], group, bucket_elems: int = 1 << 23) -> None:
+    """Sum ``tensors`` over the ranks of ``group`` in place, through flat
+    buckets of about ``bucket_elems`` elements (one all-reduce each)."""
+    buckets, cur, size = [], [], 0
+    for t in tensors:
+        cur.append(t)
+        size += t.numel()
+        if size >= bucket_elems:
+            buckets.append(cur)
+            cur, size = [], 0
+    if cur:
+        buckets.append(cur)
+    for bucket in buckets:
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+            t.copy_(part.view_as(t))
+
+
+def _rank_main(fn, rank: int, world: int, rdzv_dir: str, backend, device, timeout_s, args):
+    import faulthandler
+
+    from mvc_tpu_torch.parallel import distributed
+
+    # a rank still running near the deadline prints where it stands
+    faulthandler.dump_traceback_later(max(1.0, timeout_s - 10.0), exit=False)
+    out = os.path.join(rdzv_dir, f"rank{rank}.pkl")
+    try:
+        distributed.initialize(f"file://{os.path.join(rdzv_dir, 'rdzv')}", world, rank,
+                               backend=backend, device=device, timeout_s=timeout_s)
+        result = ("ok", fn(rank, world, *args))
+    except BaseException:                      # reported to the parent
+        result = ("error", traceback.format_exc())
+    with open(out + ".tmp", "wb") as f:        # before the group goes: that may wait on a peer
+        pickle.dump(result, f)
+    os.replace(out + ".tmp", out)
+    distributed.shutdown()
+
+
+def spawn_ranks(fn: Callable, world: int, rdzv_dir: str, args: Sequence = (),
+                backend: Optional[str] = None, device=None,
+                timeout_s: float = 120.0) -> List[object]:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
+    joined to one process group (``parallel.distributed.initialize`` over
+    ``file://<rdzv_dir>/rdzv``, with ``backend`` and ``device``, every
+    collective bounded by ``timeout_s``).  ``fn`` and ``args`` must pickle
+    (``fn`` at module level).  Returns the ranks' results in rank order;
+    raises with the rank's traceback when one fails, and kills every rank
+    still running ``timeout_s`` seconds after the start."""
+    rdzv_dir = os.path.abspath(rdzv_dir)
+    os.makedirs(rdzv_dir, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, rdzv_dir, backend, device, timeout_s, tuple(args)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results, errors = [], []
+    for r in range(world):
+        path = os.path.join(rdzv_dir, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            errors.append(f"rank {r}: exit code {procs[r].exitcode}, no result")
+            continue
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)
+        if status != "ok":
+            errors.append(f"rank {r} failed:\n{value}")
+        results.append(value)
+    if hung:
+        errors.insert(0, f"ranks {hung} still ran {timeout_s} s after the start")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return results

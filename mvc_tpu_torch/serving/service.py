@@ -30,8 +30,11 @@
   decode casts its inputs to the model dtype on entry, as the JAX service
   relies on); ``"int8"`` (``data.feature_cache.quantize_int8`` on the host,
   dequantized to float32 on the device before ``predict_tokens``).
-
-Not ported yet: the mesh argument.
+- **Mesh.** With ``mesh`` (``parallel/mesh.py``) every batch is split over
+  the mesh's devices and each shard decodes through the model's kernel on
+  its own device and stream (``ops/sharded.py``; the parameters are copied
+  to each device once); ``max_batch`` must divide the ``dp`` axis, and the
+  kernel limits are asked at the shard's batch.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 from mvc_tpu_torch.data.dataset import _bucket
 from mvc_tpu_torch.data.feature_cache import dequantize_int8, quantize_int8
 from mvc_tpu_torch.models.captioning import captions_from_tokens
+from mvc_tpu_torch.ops import sharded
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -129,10 +133,11 @@ class CaptionService:
     (``ops/quant.py``), or ``TransformerCaptioning``.  ``device`` is
     where the decode runs: the card by default (RuntimeError when there is
     none), the plain PyTorch path with ``device="cpu"``.  The model must
-    have been built for the same device."""
+    have been built for the same device.  ``mesh`` scales one replica over
+    the mesh's devices (the first of which is ``device``)."""
 
     def __init__(self, model, params, vocab, config: Optional[ServiceConfig] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.config = config or ServiceConfig()
         if self.config.mode not in ("direct", "beam"):
             raise ValueError(f"unknown mode {self.config.mode!r}")
@@ -141,6 +146,15 @@ class CaptionService:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, service on {self.device}")
+        self.mesh = mesh
+        if mesh is not None:
+            dp = mesh.shape.get("dp", 1)
+            if self.config.max_batch % dp:
+                raise ValueError(f"max_batch={self.config.max_batch} must divide the mesh dp "
+                                 f"axis ({dp})")
+            if mesh.local().devices[0] != self.device:
+                raise ValueError(f"the mesh's first device {mesh.local().devices[0]} is not "
+                                 f"the service's {self.device}")
         self.model = model
         self.params = _tree_to(params, self.device)
         self.vocab = vocab
@@ -157,6 +171,8 @@ class CaptionService:
         takes_stop = "stop_at_all_eos" in inspect.signature(model.predict_tokens).parameters
         self._predict_extra = ({"stop_at_all_eos": True} if self.config.mode == "direct"
                                and self.config.stop_at_all_eos and takes_stop else {})
+        if mesh is not None:
+            self._predict_extra["mesh"] = mesh
 
         # priority queue: a plain list + condition (the bound keeps it small);
         # best = min (priority, seq), victim = max
@@ -252,7 +268,16 @@ class CaptionService:
         if self.device.type != "cuda":
             return None
         cfg = self.config
-        return self.model.max_frames(self.params, cfg.max_batch, cfg.mode, cfg.beam_width)
+        return self.model.max_frames(self.params, cfg.max_batch // self._shards(),
+                                     cfg.mode, cfg.beam_width)
+
+    def _shards(self) -> int:
+        """How many shards a ``max_batch`` batch splits into over the mesh."""
+        if self.mesh is None:
+            return 1
+        local = self.mesh.local()
+        return sharded.axes_size(local, sharded.batch_axes(local, self.config.max_batch)
+                                 or tuple(local.axis_names))
 
     def caption(self, visual: np.ndarray, audio: Optional[np.ndarray] = None,
                 timeout: Optional[float] = None) -> str:

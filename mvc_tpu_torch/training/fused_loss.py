@@ -28,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from mvc_tpu_torch.config import PAD_ID
+from mvc_tpu_torch.training.losses import _den, _row_mean
 
 _NEG = -1e30  # finite start of the running maxima: (m - m_new) * 0 stays 0
 
@@ -125,11 +126,14 @@ def ce_entropy_from_hiddens(hiddens: Sequence[torch.Tensor], outs: Sequence[dict
                             captions: torch.Tensor,
                             sample_mask: Optional[torch.Tensor] = None,
                             compute_dtype=torch.bfloat16,
-                            tile_v: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+                            tile_v: int = 4096,
+                            counts=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ce, entropy) equal to ``losses.nll_loss`` / ``losses.entropy_loss``
     on the materialized outputs (vocab-axis entropy), without building them.
     ``hiddens``: per stream [L, B, H_d] with the zero row 0; ``outs``: per
-    stream {"w": [H_d, V], "b": [V]}; positions [1:] enter the loss."""
+    stream {"w": [H_d, V], "b": [V]}; positions [1:] enter the loss.
+    ``counts``: the denominators over the data-parallel ranks
+    (``losses.GlobalCounts``), None in one process."""
     L, B = captions.shape
     gold = captions[1:].reshape(-1).long()                           # [N]
     flat = []
@@ -139,8 +143,10 @@ def ce_entropy_from_hiddens(hiddens: Sequence[torch.Tensor], outs: Sequence[dict
         flat += [h[1:].reshape((L - 1) * B, h.shape[2]), o["w"], o["b"]]
     ce_row, b_row = _FusedRows.apply(compute_dtype, int(tile_v), gold, *flat)
     pad = (gold != PAD_ID).float()
-    ce = -(ce_row * pad).sum() / torch.clamp(pad.sum(), min=1.0)
+    ce = -(ce_row * pad).sum() / _den(pad.sum(), counts and counts.tokens)
     per_col = (b_row * pad).reshape(L - 1, B).sum(dim=0)             # [B]
+    if counts is not None:
+        return ce, -_row_mean(per_col, sample_mask, counts)
     if sample_mask is None:
         return ce, -per_col.mean()
     sm = sample_mask.to(per_col.dtype)

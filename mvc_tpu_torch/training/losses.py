@@ -13,10 +13,19 @@
 ``feat_mask`` ([B, T] bool) drops padded frames from the feature means;
 ``sample_mask`` ([B] bool) drops batch-padding rows from every batch mean.
 NLL needs no row mask: padded rows are all PAD.
+
+Under data parallelism (``training/trainer.py`` with a mesh) each rank
+holds only its rows, yet every batch mean must divide by the count over
+all ranks, as the JAX package's single GSPMD program does: the ranks hold
+different numbers of real rows and tokens, so averaging per-rank means
+would weigh them wrongly.  ``counts`` (a ``GlobalCounts``) carries those
+denominators; each rank's loss is then its share of the global loss, and
+the ranks' gradients are summed.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import partial
 from typing import Optional
 
@@ -25,32 +34,103 @@ import torch
 from mvc_tpu_torch.config import PAD_ID
 
 
-def nll_loss(outputs: torch.Tensor, captions: torch.Tensor) -> torch.Tensor:
+@dataclass(frozen=True)
+class GlobalCounts:
+    """The batch means' denominators summed over the data-parallel ranks
+    (``batch_counts`` all-reduced): non-PAD gold tokens, real rows, and real
+    frames of real rows.  ``group`` is the ranks' process group when there
+    is more than one rank: the batch-axis entropy then spans the ranks."""
+
+    tokens: torch.Tensor
+    rows: torch.Tensor
+    frames: torch.Tensor
+    group: object = None
+
+
+def batch_counts(captions: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                 feat_mask: Optional[torch.Tensor], n_frames: int) -> torch.Tensor:
+    """[3] float32: this batch's non-PAD gold tokens, real rows (all rows
+    without ``sample_mask``) and the frames the local reconstruction
+    averages over (``feat_mask`` and ``sample_mask`` as the loss takes them;
+    ``n_frames`` per row without ``feat_mask``)."""
+    tokens = (captions[1:] != PAD_ID).sum()
+    rows = (sample_mask.sum() if sample_mask is not None
+            else torch.tensor(captions.shape[1], device=captions.device))
+    if feat_mask is None:
+        frames = rows * n_frames
+    elif sample_mask is None:
+        frames = feat_mask.sum()
+    else:
+        frames = (feat_mask & sample_mask[:, None]).sum()
+    return torch.stack([tokens, rows, frames]).float()
+
+
+def global_counts(captions: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                  feat_mask: Optional[torch.Tensor], n_frames: int, group,
+                  world_size: int) -> GlobalCounts:
+    """``batch_counts`` summed over the ranks of ``group`` (one all-reduce)."""
+    import torch.distributed as dist
+
+    c = batch_counts(captions, sample_mask, feat_mask, n_frames)
+    dist.all_reduce(c, group=group)
+    return GlobalCounts(c[0], c[1], c[2], group=group if world_size > 1 else None)
+
+
+def _den(local: torch.Tensor, total: Optional[torch.Tensor]) -> torch.Tensor:
+    """A batch mean's denominator: this batch's count, or the count over the
+    ranks when there is one."""
+    return torch.clamp(local if total is None else total, min=1.0)
+
+
+def nll_loss(outputs: torch.Tensor, captions: torch.Tensor,
+             counts: Optional[GlobalCounts] = None) -> torch.Tensor:
     """Mean NLL of the gold tokens over non-PAD positions [1:]; outputs
     [L, B, V] log-probs, captions [L, B]."""
     logp = outputs[1:]
     gold = captions[1:].long()
     picked = torch.gather(logp, 2, gold[:, :, None])[:, :, 0]
     mask = (gold != PAD_ID).to(logp.dtype)
-    return -(picked * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -(picked * mask).sum() / _den(mask.sum(), counts and counts.tokens)
 
 
-def _row_mean(per_row: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _row_mean(per_row: torch.Tensor, sample_mask: Optional[torch.Tensor],
+              counts: Optional[GlobalCounts] = None) -> torch.Tensor:
+    if counts is not None:
+        if sample_mask is not None:
+            per_row = per_row * sample_mask.to(per_row.dtype)
+        return per_row.sum() / _den(None, counts.rows)
     if sample_mask is None:
         return per_row.mean()
     sm = sample_mask.to(per_row.dtype)
     return (per_row * sm).sum() / torch.clamp(sm.sum(), min=1.0)
 
 
+def _batch_axis_log_softmax(x: torch.Tensor, group) -> torch.Tensor:
+    """``log_softmax`` over the batch axis (dim 1) of the rows of every rank:
+    a cross-rank max, then a differentiable cross-rank sum of the
+    exponentials (its backward sums the ranks' gradients)."""
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    m = x.detach().amax(dim=1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    s = all_reduce(torch.exp(x - m).sum(dim=1, keepdim=True), op=dist.ReduceOp.SUM, group=group)
+    return x - m - torch.log(s)
+
+
 def entropy_loss(outputs_tail: torch.Tensor, ignore_mask: torch.Tensor,
                  compat_batch_axis: bool = False,
-                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 sample_mask: Optional[torch.Tensor] = None,
+                 counts: Optional[GlobalCounts] = None) -> torch.Tensor:
     """-sum_words mean_batch sum_vocab p*log p over [L-1, B, V] log-probs;
     ``ignore_mask`` [L-1, B] is True on PAD."""
-    logp = torch.log_softmax(outputs_tail, dim=1 if compat_batch_axis else 2)
+    if compat_batch_axis and counts is not None and counts.group is not None:
+        logp = _batch_axis_log_softmax(outputs_tail, counts.group)
+    else:
+        logp = torch.log_softmax(outputs_tail, dim=1 if compat_batch_axis else 2)
     b = (torch.exp(logp) * logp).sum(dim=2)
     b = torch.where(ignore_mask, torch.zeros_like(b), b)
-    return -1.0 * _row_mean(b.sum(dim=0), sample_mask)
+    return -1.0 * _row_mean(b.sum(dim=0), sample_mask, counts)
 
 
 def _masked_time_mean(x: torch.Tensor, feat_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -64,13 +144,18 @@ def _masked_time_mean(x: torch.Tensor, feat_mask: Optional[torch.Tensor]) -> tor
 def global_reconstruction_loss(features: torch.Tensor, recons: torch.Tensor,
                                keep_mask: torch.Tensor,
                                feat_mask: Optional[torch.Tensor] = None,
-                               sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                               sample_mask: Optional[torch.Tensor] = None,
+                               counts: Optional[GlobalCounts] = None) -> torch.Tensor:
     """features [B, T, F], recons [B, L, F], keep_mask [L, B] bool."""
     x = _masked_time_mean(features, feat_mask)                       # [B, F]
     m = keep_mask.t().to(recons.dtype)[:, :, None]                   # [B, L, 1]
     caption_len = keep_mask.sum(dim=0).to(recons.dtype)[:, None]
     x_recon = (recons * m).sum(dim=1) / torch.clamp(caption_len, min=1.0)
     sq = (x - x_recon) ** 2
+    if counts is not None:
+        if sample_mask is not None:
+            sq = sq * sample_mask.to(sq.dtype)[:, None]
+        return sq.sum() / _den(None, counts.rows * sq.shape[1])
     if sample_mask is None:
         return sq.mean()
     sm = sample_mask.to(sq.dtype)[:, None]
@@ -79,8 +164,12 @@ def global_reconstruction_loss(features: torch.Tensor, recons: torch.Tensor,
 
 def local_reconstruction_loss(features: torch.Tensor, recons: torch.Tensor,
                               feat_mask: Optional[torch.Tensor] = None,
-                              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              sample_mask: Optional[torch.Tensor] = None,
+                              counts: Optional[GlobalCounts] = None) -> torch.Tensor:
     """Plain MSE; the masked forms average over real frames and real rows."""
+    if counts is not None and feat_mask is None and sample_mask is None:
+        sq = (features - recons) ** 2
+        return sq.sum() / _den(None, counts.frames * features.shape[2])
     if feat_mask is None and sample_mask is None:
         return ((features - recons) ** 2).mean()
     if feat_mask is None:
@@ -91,30 +180,33 @@ def local_reconstruction_loss(features: torch.Tensor, recons: torch.Tensor,
         if sample_mask is not None:
             m = m * sample_mask.to(features.dtype)[:, None, None]
     sq = ((features - recons) ** 2) * m
-    return sq.sum() / torch.clamp(m.sum() * features.shape[2], min=1.0)
+    return sq.sum() / _den(m.sum() * features.shape[2],
+                           counts and counts.frames * features.shape[2])
 
 
 def _single_reconstruction_loss(captions, features, recons, rec_type: str, feat_mask=None,
-                                sample_mask=None) -> torch.Tensor:
+                                sample_mask=None, counts=None) -> torch.Tensor:
     if recons is None or rec_type not in ("global", "local"):
         return torch.zeros((), device=captions.device)
     if rec_type == "global":
         return global_reconstruction_loss(features, recons, keep_mask=(captions != PAD_ID),
-                                          feat_mask=feat_mask, sample_mask=sample_mask)
+                                          feat_mask=feat_mask, sample_mask=sample_mask,
+                                          counts=counts)
     return local_reconstruction_loss(features, recons, feat_mask=feat_mask,
-                                     sample_mask=sample_mask)
+                                     sample_mask=sample_mask, counts=counts)
 
 
 def total_reconstruction_loss(outputs, captions, features=None, features_recons=None,
                               reg_lambda: float = 0.0, recon_lambda: float = 0.0,
                               reconstruction_type: str = "global", feat_mask=None,
-                              compat_batch_axis_entropy: bool = False, sample_mask=None):
+                              compat_batch_axis_entropy: bool = False, sample_mask=None,
+                              counts=None):
     """Single-feature loss.  Returns (loss, ce, entropy, recon)."""
-    ce = nll_loss(outputs, captions)
+    ce = nll_loss(outputs, captions, counts)
     ent = entropy_loss(outputs[1:], captions[1:] == PAD_ID, compat_batch_axis_entropy,
-                       sample_mask=sample_mask)
+                       sample_mask=sample_mask, counts=counts)
     rec = _single_reconstruction_loss(captions, features, features_recons,
-                                      reconstruction_type, feat_mask, sample_mask)
+                                      reconstruction_type, feat_mask, sample_mask, counts)
     return ce + reg_lambda * ent + recon_lambda * rec, ce, ent, rec
 
 
@@ -124,16 +216,17 @@ def modality_wise_reconstruction_loss(outputs, captions, audio_features=None,
                                       audio_recon_lambda: float = 0.0,
                                       visual_recon_lambda: float = 0.0, rec_type: str = "none",
                                       feat_mask=None, compat_batch_axis_entropy: bool = False,
-                                      sample_mask=None):
+                                      sample_mask=None, counts=None):
     """Dual-modality loss.  Returns (loss, ce, entropy, audio_recon,
-    visual_recon)."""
-    ce = nll_loss(outputs, captions)
+    visual_recon).  ``counts``: the denominators over the data-parallel
+    ranks (``GlobalCounts``), None in one process."""
+    ce = nll_loss(outputs, captions, counts)
     ent = entropy_loss(outputs[1:], captions[1:] == PAD_ID, compat_batch_axis_entropy,
-                       sample_mask=sample_mask)
+                       sample_mask=sample_mask, counts=counts)
     a_rec = _single_reconstruction_loss(captions, audio_features, audio_features_recons,
-                                        rec_type, feat_mask, sample_mask)
+                                        rec_type, feat_mask, sample_mask, counts)
     v_rec = _single_reconstruction_loss(captions, visual_features, visual_features_recons,
-                                        rec_type, feat_mask, sample_mask)
+                                        rec_type, feat_mask, sample_mask, counts)
     loss = ce + reg_lambda * ent + audio_recon_lambda * a_rec + visual_recon_lambda * v_rec
     return loss, ce, ent, a_rec, v_rec
 

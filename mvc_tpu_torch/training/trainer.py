@@ -16,6 +16,19 @@ there.  The observable surface is the JAX trainer's: the history
 dict's six keys, the TensorBoard tags, 10 example captions per eval, the
 checkpoint triggers (best val CIDEr -> main + ``_best``, best val loss ->
 main, ``_last`` at the end) and the ``eval_freq`` cadence.
+
+With ``mesh`` (``parallel/mesh.py``) the trainer is one data-parallel rank
+of the mesh's process group: it trains on ``mesh.device`` over its
+loader's process shard, padded to its share of the ``dp`` axis.  Each step
+first agrees on the batch's caption and frame lengths (the longest over
+the ranks, so every rank draws the same teacher-forcing coins), all-reduces
+the few counts the batch means divide by (``losses.GlobalCounts``), and
+after ``backward`` sums the gradients and the step's metrics in flat
+buckets, before the optimizer's value clip.  Rank 0's parameters are
+broadcast when ``fit`` starts.  The eval decodes each rank's share of the
+videos through the kernels, gathers the captions and scores them on rank
+0, which broadcasts the scores so the plateau scheduler and the checkpoint
+choice agree; checkpoints and TensorBoard are rank 0's.
 """
 
 from __future__ import annotations
@@ -26,10 +39,11 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mvc_tpu_torch.config import TrainerConfig
 from mvc_tpu_torch.data.dataset import video_dataset_to_video_captions_loader
@@ -40,6 +54,8 @@ from mvc_tpu_torch.data.feature_cache import (
     quantize_int8,
 )
 from mvc_tpu_torch.evalcap import NLPScore, prepare_native
+from mvc_tpu_torch.parallel.mesh import pad_batch_to_multiple
+from mvc_tpu_torch.parallel.smoke import sum_over_ranks
 from mvc_tpu_torch.training import fused_loss as fused_lib
 from mvc_tpu_torch.training import losses as loss_lib
 from mvc_tpu_torch.training import optimizer as opt_lib
@@ -86,13 +102,18 @@ def _tree_map(fn, tree):
 class Trainer:
     def __init__(self, checkpoint_name: str, log_dir: Optional[str] = "logs",
                  display_freq: int = 10, eval_freq: int = 10, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("data/tensor-parallel meshes are not ported yet "
-                                      "(ROADMAP.md)")
+        if mesh is not None and (mesh.shape.get("tp", 1) > 1 or mesh.shape.get("sp", 1) > 1):
+            raise NotImplementedError(
+                "tp > 1 and sp > 1 are not ported yet: the vocab-sharded loss and the "
+                "frame-sharded attention need collectives of their own (ROADMAP.md §1)")
+        self.mesh = mesh
+        self._group = mesh.group if mesh is not None else None
+        self._world = mesh.world_size if mesh is not None else 1
+        self._rank0 = mesh is None or mesh.rank == 0
         self.checkpoint_name = checkpoint_name
         self.display_freq = display_freq
         self.eval_freq = eval_freq
-        self.summary_writer = _make_writer(log_dir)
+        self.summary_writer = _make_writer(log_dir if self._rank0 else None)
         self._transfer_dtype: Optional[torch.dtype] = None
         self._transfer_int8 = False
         self._device_prefetch = False
@@ -127,6 +148,7 @@ class Trainer:
 
         def compute_loss(params, batch, gen, tf_ratio):
             feat_mask = batch["feat_mask"] if mask_feats else None
+            counts = self._global_counts(batch, feat_mask)
             sample_mask = batch.get("sample_mask")
             p = cast_params(params)
             captions = batch["captions"]
@@ -135,13 +157,14 @@ class Trainer:
                     p, batch["audio"], batch["visual"], captions, gen=gen,
                     teacher_forcing_ratio=tf_ratio, feat_mask=feat_mask)
                 ce, ent = fused_lib.ce_entropy_from_hiddens(
-                    h_list, outs, captions, sample_mask=sample_mask, compute_dtype=compute)
+                    h_list, outs, captions, sample_mask=sample_mask, compute_dtype=compute,
+                    counts=counts)
                 a_l = loss_lib._single_reconstruction_loss(
                     captions, batch["audio"], a_rec, model.reconstructor_type, feat_mask,
-                    sample_mask)
+                    sample_mask, counts)
                 v_l = loss_lib._single_reconstruction_loss(
                     captions, batch["visual"], v_rec, model.reconstructor_type, feat_mask,
-                    sample_mask)
+                    sample_mask, counts)
                 loss = (ce + cfg.reg_lambda * ent + cfg.audio_recon_lambda * a_l
                         + cfg.visual_recon_lambda * v_l)
             else:
@@ -150,18 +173,28 @@ class Trainer:
                     teacher_forcing_ratio=tf_ratio, feat_mask=feat_mask)
                 loss, ce, ent, a_l, v_l = loss_fn(
                     outputs, captions, batch["audio"], a_rec, batch["visual"], v_rec,
-                    feat_mask=feat_mask, sample_mask=sample_mask)
+                    feat_mask=feat_mask, sample_mask=sample_mask, counts=counts)
             return loss, torch.stack([loss, ce, ent, a_l, v_l]).detach().float()
 
         def train_step(params, opt, batch, gen):
             loss, metrics = compute_loss(params, batch, gen, None)
             loss.backward()
+            if self._group is not None:      # before the optimizer's value clip
+                grads = []
+                for p in opt.leaves:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    grads.append(p.grad)
+                sum_over_ranks(grads + [metrics], self._group)
             opt.step()
             return params, metrics
 
         @torch.no_grad()
         def eval_loss_step(params, batch, gen):
-            return compute_loss(params, batch, gen, 0.0)[1]
+            metrics = compute_loss(params, batch, gen, 0.0)[1]
+            if self._group is not None:
+                dist.all_reduce(metrics, group=self._group)
+            return metrics
 
         # the feature-cache variants: the batch holds caption ids and cache
         # rows; features and frame mask are gathered on the device
@@ -180,12 +213,81 @@ class Trainer:
         self._eval_loss_step_cached = eval_loss_step_cached
         return train_step, eval_loss_step
 
+    # ------------------------------------------------------------ data parallelism
+    def _global_counts(self, batch, feat_mask) -> Optional[loss_lib.GlobalCounts]:
+        """The batch means' denominators summed over the ranks (None without
+        a process group)."""
+        if self._group is None:
+            return None
+        return loss_lib.global_counts(batch["captions"], batch.get("sample_mask"), feat_mask,
+                                      batch["audio"].shape[1], self._group, self._world)
+
+    def _max_over_ranks(self, values) -> List[int]:
+        """Host integers' maxima over the ranks: through the host under gloo,
+        through the card under NCCL (which takes no host tensor)."""
+        on_card = dist.get_backend(self._group) == "nccl"
+        t = torch.tensor(values, dtype=torch.int64,
+                         device=self.mesh.device if on_card else "cpu")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        return t.tolist()
+
+    def _rank_batches(self, dataloader):
+        """The loader's batches, then (when another rank has more) batches of
+        padding rows only, so every rank takes the same number of steps.
+        The step count is agreed here, on the calling thread, before the
+        prefetch thread starts."""
+        if self._world == 1:
+            return dataloader
+        return self._padded_steps(dataloader, self._max_over_ranks([len(dataloader)])[0])
+
+    @staticmethod
+    def _padded_steps(dataloader, n_steps):
+        last, taken = None, 0
+        for batch in dataloader:
+            yield batch
+            last, taken = batch, taken + 1
+        if taken < n_steps and last is None:
+            raise ValueError("this rank's data shard is empty; give every rank a batch")
+        for _ in range(n_steps - taken):
+            yield {k: np.zeros_like(v) if isinstance(v, np.ndarray) else v
+                   for k, v in last.items()}
+
+    def _agree_lengths(self, batch):
+        """Pad the device batch to the longest caption and clip of any rank
+        (PAD tokens, zero and masked frames), as one program over the union
+        batch would see it."""
+        if self._world == 1:
+            return batch
+        L = batch["captions"].shape[0]
+        T = batch["t_pad"] if "t_pad" in batch else batch["feat_mask"].shape[1]
+        L2, T2 = self._max_over_ranks([L, T])
+        out = dict(batch)
+        if L2 > L:
+            caps = batch["captions"]
+            out["captions"] = torch.cat([caps, caps.new_zeros((L2 - L, caps.shape[1]))])
+        if T2 > T:
+            if "t_pad" in batch:
+                out["t_pad"] = T2
+            else:
+                for k in ("audio", "visual", "feat_mask"):
+                    x = batch[k]
+                    out[k] = torch.cat([x, x.new_zeros((x.shape[0], T2 - T, *x.shape[2:]))],
+                                       dim=1)
+        return out
+
     def _put_batch(self, batch, device: torch.device):
         """Host batch -> tensors on ``device``: float32 arrays cast to the
         transfer dtype on the host (int8: ``quantize_int8``'s payload and
         scales, dequantized to float32 on the device after the copy), then
         a pinned, non-blocking copy to the card.  Lists (video ids, caption
-        strings) and host ints (``t_pad``) stay as they are."""
+        strings) and host ints (``t_pad``) stay as they are.  With a mesh the
+        rank's rows are first padded to a multiple of its share of ``dp``
+        (``pad_batch_to_multiple``; the padding rows have sample_mask=False)."""
+        if self.mesh is not None:
+            ref = batch["audio" if "audio" in batch else "video_rows"]
+            if "sample_mask" not in batch:
+                batch = dict(batch, sample_mask=np.ones((ref.shape[0],), bool))
+            batch = pad_batch_to_multiple(batch, self.mesh.shape["dp"] // self._world)
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         if self._transfer_int8:
             for k in ("audio", "visual"):
@@ -286,10 +388,16 @@ class Trainer:
         self.best_loss = 1e6
         self.best_CIDEr = 0.0
         self._vocab = train_loader.dataset.vocab
+        if self.mesh is not None and model.device != self.mesh.device:
+            raise ValueError(f"the model is on {model.device}, this rank's mesh device is "
+                             f"{self.mesh.device}")
 
         params, ckpt = self._load(params)
         # the leaves the optimizer trains in place
         params = _tree_map(lambda t: t.detach().clone(), params)
+        if self._group is not None:
+            for leaf in opt_lib.tree_leaves(params):
+                dist.broadcast(leaf, src=0, group=self._group)
         self._optimizer = opt_lib.make_optimizer(cfg, params)
         if ckpt is not None:
             self.previous_epochs = ckpt.get("epoch", 0)
@@ -306,9 +414,11 @@ class Trainer:
         opt = opt_lib.set_learning_rate(self._optimizer, self.lr_scheduler.lr)
         self._train_step, self._eval_loss_step = self._build_train_step(model, cfg)
         if cfg.device_feature_cache:
-            self._attach_feature_caches(cfg, model.device, (train_loader, val_loader))
+            self._attach_feature_caches(cfg, model.device, (train_loader, val_loader), self.mesh)
 
         eval_kwargs = dict(batch_size=cfg.batch_size, frame_buckets=tuple(cfg.frame_buckets))
+        if self.mesh is not None:
+            eval_kwargs.update(process_index=self.mesh.rank, process_count=self._world)
         vidcaps = {phase: video_dataset_to_video_captions_loader(
             loader.dataset, video_only=loader.dataset.video_only, **eval_kwargs)
             for phase, loader in (("train", train_loader), ("val", val_loader))}
@@ -348,9 +458,9 @@ class Trainer:
             # one snapshot per epoch whatever the triggers; the pickle and
             # the write run on the saver's thread
             jobs = []
-            if save_main:
+            if save_main and self._rank0:
                 jobs.append((self.checkpoint_name, self._main_payload(epoch, params, opt)))
-            if save_best:
+            if save_best and self._rank0:
                 jobs.append((self.checkpoint_name.replace(".ckpt", "_best.ckpt"),
                              {"epoch": epoch, "params": params,
                               "history": copy.deepcopy(self.history)}))
@@ -358,17 +468,20 @@ class Trainer:
                 self._saver.submit(jobs)
             print(f"Epoch time: {time.time() - t0:.1f}s")
 
-        self._saver.submit([(self.checkpoint_name.replace(".ckpt", "_last.ckpt"),
-                             {"epoch": cfg.epochs, "params": params, "history": self.history})])
+        if self._rank0:
+            self._saver.submit([(self.checkpoint_name.replace(".ckpt", "_last.ckpt"),
+                                 {"epoch": cfg.epochs, "params": params,
+                                  "history": self.history})])
         self._saver.wait()
         self.summary_writer.close()
         return params, opt, self.history
 
     @staticmethod
-    def _attach_feature_caches(cfg: TrainerConfig, device, loaders):
+    def _attach_feature_caches(cfg: TrainerConfig, device, loaders, mesh=None):
         """One ``DeviceFeatureCache`` per dataset, stored in
         ``transfer_dtype`` (float32 when None) and stacked to the frame
-        bucket of the loader's own ladder that covers its longest clip."""
+        bucket of the loader's own ladder that covers its longest clip; on
+        the rank's device with a mesh, every rank holding all of it."""
         caches = {}
         for loader in loaders:
             if not hasattr(loader, "attach_feature_cache"):
@@ -377,7 +490,7 @@ class Trainer:
             if key not in caches:
                 caches[key] = cache = DeviceFeatureCache(
                     loader.dataset, dtype=cfg.transfer_dtype or "float32", device=device,
-                    frame_buckets=tuple(loader.frame_buckets))
+                    frame_buckets=tuple(loader.frame_buckets), mesh=mesh)
                 print(f"Device feature cache: {cache.nbytes() / 1e6:.1f} MB "
                       f"({len(cache.row_of)} clips, T_top={cache.t_top})")
             loader.attach_feature_cache(caches[key])
@@ -392,8 +505,9 @@ class Trainer:
         cache = getattr(dataloader, "feature_cache", None)
         profiler = self._start_profiler(model.device, epoch)
         t0 = time.time()
-        for batch in self._device_batches(dataloader, model.device):
+        for batch in self._device_batches(self._rank_batches(dataloader), model.device):
             n_samples += batch.pop("_n_real", batch["captions"].shape[1])
+            batch = self._agree_lengths(batch)
             if cache is not None:
                 t_pad = batch.pop("t_pad")
                 params, metrics = self._train_step_cached(params, opt, batch, cache.arrays(), gen,
@@ -459,8 +573,9 @@ class Trainer:
         sums = {k: 0.0 for k in LOSS_KEYS}
         step_metrics = []
         cache = getattr(dataloader, "feature_cache", None)
-        for batch in self._device_batches(dataloader, model.device):
+        for batch in self._device_batches(self._rank_batches(dataloader), model.device):
             batch.pop("_n_real", None)
+            batch = self._agree_lengths(batch)
             if cache is not None:
                 t_pad = batch.pop("t_pad")
                 step_metrics.append(self._eval_loss_step_cached(params, batch, cache.arrays(),
@@ -490,6 +605,8 @@ class Trainer:
         stop_eos = (mode == "direct"
                     and "stop_at_all_eos" in inspect.signature(model.predict_tokens).parameters)
         extra = {"stop_at_all_eos": True} if stop_eos else {}
+        if self.mesh is not None:
+            extra["mesh"] = self.mesh
         t0 = time.time()
         with torch.no_grad():
             for batch in videocaptions_loader:
@@ -504,6 +621,8 @@ class Trainer:
                     vid_gen[vid] = [vocab.decode_indexes(row[1:])]
         captions_per_sec = len(vid_gen) / max(time.time() - t0, 1e-9)
         self.summary_writer.add_scalar(f"{phase}/captions_per_sec", captions_per_sec, epoch)
+        if self._world > 1:
+            vid_gt, vid_gen = self._gather_captions(vid_gt, vid_gen)
 
         print("\nExample captions: key >> [generated] (ground_truth)")
         for i, key in enumerate(vid_gt):
@@ -514,14 +633,36 @@ class Trainer:
 
         scores = None
         if get_scores:
-            scores = NLPScore(vid_gt, vid_gen, meteor_synonyms=self._meteor_synonyms,
-                              meteor_paraphrases=self._meteor_paraphrases,
-                              meteor_function_words=self._meteor_function_words)
+            if self._rank0:
+                scores = NLPScore(vid_gt, vid_gen, meteor_synonyms=self._meteor_synonyms,
+                                  meteor_paraphrases=self._meteor_paraphrases,
+                                  meteor_function_words=self._meteor_function_words)
+            if self._world > 1:
+                box = [scores]
+                dist.broadcast_object_list(box, src=0, group=self._group)
+                scores = box[0]
             for name in ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr", "METEOR"):
                 self.summary_writer.add_scalar(f"{phase}/score/{mode}/{name}", scores[name],
                                                epoch)
             print(scores)
         return scores, vid_gt, vid_gen
+
+    def _gather_captions(self, vid_gt, vid_gen):
+        """Every rank's (references, captions) in the single-process order:
+        rank r decoded the videos r, r + world, ... (``EvalDataLoader``'s
+        strided shard).  Through ``all_gather_object``, which gloo and NCCL
+        both take."""
+        parts = [None] * self._world
+        dist.all_gather_object(parts, (list(vid_gt.items()), list(vid_gen.items())),
+                               group=self._group)
+        gt: Dict[str, list] = {}
+        gen: Dict[str, list] = {}
+        for j in range(max(len(p[0]) for p in parts)):
+            for p_gt, p_gen in parts:
+                if j < len(p_gt):
+                    gt[p_gt[j][0]] = p_gt[j][1]
+                    gen[p_gen[j][0]] = p_gen[j][1]
+        return gt, gen
 
     def set_vocab(self, vocab):
         self._vocab = vocab

@@ -261,9 +261,25 @@ def test_frame_buckets_round_up_above_the_top_bucket():
     assert [_bucket(n, (64, 128, 256)) for n in (80, 160, 320)] == [128, 256, 512]
 
 
-def test_extractor_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
-        FeatureExtractor(mesh=object(), device="cpu")
+def test_extractor_refuses_a_mesh(tmp_path, weights):
+    """Since the mesh is ported the extractor takes one: over two CPU shards
+    the features equal the meshless extractor's (within 1e-5 relative in
+    norm), and a mesh that does not start at the extractor's device is
+    refused."""
+    from mvc_tpu_torch.parallel import make_mesh
+
+    _clip_set(tmp_path, 2)
+    kw = dict(frame_buckets=(8,), audio_buckets=(3,), decode_workers=1, device="cpu")
+    clips = [str(tmp_path / "videos" / f"clip{i:03d}_0_3.avi") for i in range(2)]
+    plain = _small(FeatureExtractor(*weights["port"], **kw)).extract_batch(clips)
+    fe = _small(FeatureExtractor(*weights["port"], mesh=make_mesh(dp=2, devices=["cpu"] * 2),
+                                 **kw))
+    assert fe._shard_devices == [torch.device("cpu")] * 2
+    for (gv, ga), (wv, wa) in zip(fe.extract_batch(clips), plain):
+        assert gv.shape == wv.shape and ga.shape == wa.shape
+        assert _rel_err_in_norm(gv, wv) < 1e-5 and _rel_err_in_norm(ga, wa) < 1e-5
+    with pytest.raises(ValueError, match="first device"):
+        FeatureExtractor(*weights["port"], mesh=make_mesh(dp=1, devices=["meta"]), **kw)
 
 
 @pytest.mark.parametrize("make", [lambda: FeatureExtractor(), lambda: tenc.VisualEncoder(),

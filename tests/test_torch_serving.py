@@ -367,6 +367,8 @@ def test_package_imports_no_jax():
             "import mvc_tpu_torch.cli.rehearse_real_data, mvc_tpu_torch.cli.build_vocab\n"
             "import mvc_tpu_torch.cli.build_wordnet_tables, mvc_tpu_torch.utils.torch_oracles\n"
             "import mvc_tpu_torch.evalcap._native\n"
+            "import mvc_tpu_torch.parallel, mvc_tpu_torch.parallel.smoke\n"
+            "import mvc_tpu_torch.ops.sharded, mvc_tpu_torch.cli.multihost_worker\n"
             "from mvc_tpu_torch.data import build_msvd_vocab, build_msr_vtt_vocab\n"
             "from mvc_tpu_torch.evalcap import COCOEvalCap, native_status\n"
             "for m in pkgutil.walk_packages(mvc_tpu_torch.__path__, 'mvc_tpu_torch.'):\n"

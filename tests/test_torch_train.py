@@ -592,18 +592,25 @@ def test_fit_end_to_end_then_resume(synthetic_msvd, tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
-    """What is not ported raises NotImplementedError: a mesh (the trainer,
-    the CLI's --dp/--tp/--sp); the transformer family, the feature cache,
-    int8 transfer and bf16 Adam state are ported, and a transfer dtype of
-    neither package raises ValueError."""
+    """What is not ported raises NotImplementedError: a mesh with tp or sp
+    above 1 (the trainer, the CLI's --tp/--sp); the data-parallel mesh, the
+    transformer family, the feature cache, int8 transfer and bf16 Adam
+    state are ported.  A --dp wider than the devices at hand and a transfer
+    dtype of neither package raise ValueError."""
     from mvc_tpu_torch.cli.train import main
+    from mvc_tpu_torch.parallel import make_mesh
     from mvc_tpu_torch.training.trainer import Trainer
 
-    with pytest.raises(NotImplementedError):
-        Trainer(str(tmp_path / "x.ckpt"), log_dir=None, mesh=object())
-    for extra in (["--dp", "2"], ["--model", "transformer", "--tp", "2"]):
+    for kw in (dict(dp=1, tp=2), dict(dp=1, sp=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(str(tmp_path / "x.ckpt"), log_dir=None,
+                    mesh=make_mesh(devices=["cpu"] * 2, **kw))
+    Trainer(str(tmp_path / "x.ckpt"), log_dir=None, mesh=make_mesh(devices=["cpu"] * 2))
+    for extra in (["--model", "transformer", "--tp", "2"], ["--sp", "2"]):
         with pytest.raises(NotImplementedError):
             main(["--device", "cpu"] + extra)
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
+        main(["--device", "cpu", "--dp", "2", "--data_root", str(tmp_path)])
     with pytest.raises(ValueError):
         Trainer(str(tmp_path / "x.ckpt"), log_dir=None).fit(
             None, None, None, None, None, TrainerConfig(transfer_dtype="int4"))
@@ -663,8 +670,9 @@ def test_port_checkpoint_loads_in_the_jax_package(tmp_path):
 def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
     """``python -m mvc_tpu_torch.cli.train --reconstructor none`` for one
     epoch on the CPU at the reference widths (one experiment, the JAX
-    single-experiment name), then with ``--model transformer`` (the
-    transformer's checkpoint under the JAX name); the mesh flags raise."""
+    single-experiment name), with ``--dp 1`` (the same history), then with
+    ``--model transformer`` (the transformer's checkpoint under the JAX
+    name); ``--tp``/``--sp`` above 1 raise."""
     from mvc_tpu_torch.cli.train import main
 
     (tmp_path / "data").mkdir()
@@ -676,9 +684,17 @@ def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
     assert len(history["train_loss"]) == len(history["val_score"]) == 1
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001_last.ckpt").exists()
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001.json").exists()
-    for extra in (["--dp", "2"], ["--tp", "2"], ["--sp", "2"]):
+    for extra in (["--tp", "2"], ["--sp", "2"]):
         with pytest.raises(NotImplementedError):
             main(args + extra)
+    # --dp 1 (the default -1 alone is the same 1x1 mesh): the same run
+    (tmp_path / "dp1").mkdir()
+    (tmp_path / "dp1" / "data").symlink_to(tmp_path / "data")
+    monkeypatch.chdir(tmp_path / "dp1")
+    (meshed,) = main(args + ["--dp", "1"])
+    assert meshed["train_loss"] == history["train_loss"]
+    assert meshed["val_score"] == history["val_score"]
+    monkeypatch.chdir(tmp_path)
     (history,) = main(args + ["--model", "transformer"])
     assert len(history["train_loss"]) == len(history["val_score"]) == 1
     ckpt = tmp_path / "checkpoints" / "MSVD" / "transformer_1_epochs_custom_none_0.001_last.ckpt"

@@ -93,9 +93,11 @@ def test_own_copies_match_jax_package(tmp_path):
     for name in ("VISUAL_DECODER_CONFIG", "AUDIO_DECODER_CONFIG", "SINGLE_DECODER_CONFIG"):
         assert (dataclasses.asdict(getattr(tcfg, name))
                 == dataclasses.asdict(getattr(jcfg, name))), name
-    for name in ("ReconstructorConfig", "TrainerConfig", "ModelConfig"):
+    for name in ("ReconstructorConfig", "TrainerConfig", "ModelConfig", "MeshConfig"):
         assert (dataclasses.asdict(getattr(tcfg, name)())
                 == dataclasses.asdict(getattr(jcfg, name)())), name
+    for sp in (1, 2):
+        assert tcfg.MeshConfig(sp=sp).axis_names == jcfg.MeshConfig(sp=sp).axis_names
     from mvc_tpu.models.transformer import TransformerConfig as JaxTConfig
 
     assert dataclasses.asdict(tcfg.TransformerConfig()) == dataclasses.asdict(JaxTConfig())
