@@ -103,6 +103,20 @@ its own failure:
    timed; (d) ``FeatureExtractor(mesh=)`` over 2 shards on 8 of phase 8's
    clips (within 1e-5 of one device); (e) ``CaptionService(mesh=)`` dual
    direct behind HTTP, 16 requests
+12. tensor and sequence parallelism at full width, on phase 6-7's tree:
+   four ranks spawned on the one card over gloo as a (dp=1, tp=2, sp=2)
+   mesh, ``AVCaptioningDual`` with global reconstructors: (a) 3 train steps
+   of B=128 (the last batch padded) against one process over the same
+   batch (loss and every gradient leaf, gathered, within 1e-4 relative;
+   replicated parameters equal on every rank, the vocab slices of one tp
+   index equal); (b) a 1-epoch ``Trainer.fit`` on the mesh whose eval
+   gathers the vocab slices and decodes through ``dual_greedy.cu``
+   (launches counted on every rank), its gathered val captions equal to
+   one process's decode of the same params and to the plain decode's
+   (>= 99 %); (c) one step with local reconstructors against one process;
+   (d) the step at T=28, L=8 on the mesh and, on rank 0, alone over the
+   same batch, each gradient bucket's gloo all-reduce and the ranks'
+   start-up timed
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -2741,6 +2755,268 @@ def mesh_phase(card, device, ds, vocab_path, vocab, model, params, single, spara
     return launches
 
 
+TPSP_SHAPE = (1, 2, 2)           # 12: (dp, tp, sp), four ranks on the one card
+TPSP_ROWS = 299                  # (a): 128 + 128 + 43 rows, the last batch padded
+TPSP_FIT_ROWS = 256              # (b): the fit's train rows (two steps); val: all 128
+
+
+class WholeGradCapture(GradCapture):
+    """``GradCapture`` on a tp mesh: each leaf's summed gradient with its
+    vocab slices gathered (every rank takes part)."""
+
+    def __init__(self, opt, params, mesh):
+        from mvc_tpu_torch.parallel.mesh import param_specs
+        from mvc_tpu_torch.training.optimizer import tree_leaves
+
+        super().__init__(opt, params)
+        self.mesh, self.specs = mesh, tree_leaves(param_specs(params))
+
+    def step(self):
+        from mvc_tpu_torch.parallel.mesh import gather_leaf
+
+        self.grads = {k: gather_leaf(self.mesh, spec, p.grad, V).detach().cpu().clone()
+                      for (k, p), spec in zip(self.named, self.specs)}
+        self.opt.step()
+
+
+def leaf_digests(params, mesh):
+    """(digest of the replicated leaves, digest of this rank's vocab slices)."""
+    import hashlib
+
+    from mvc_tpu_torch.parallel.mesh import sharded_leaves
+
+    hs = [hashlib.sha256(), hashlib.sha256()]
+    for (_, x), sharded in zip(named_leaves(params), sharded_leaves(mesh, params)):
+        hs[sharded].update(x.detach().cpu().numpy().tobytes())
+    return hs[0].hexdigest(), hs[1].hexdigest()
+
+
+def grads_against(opt, ref_opt):
+    """The worst leaf's gradient error, relative in norm."""
+    return max(float((opt.grads[n] - ref_opt.grads[n]).norm()
+                     / ref_opt.grads[n].norm().clamp_min(1e-30)) for n in ref_opt.grads)
+
+
+def tpsp_rank(rank, world, ds, vocab_path, device, t_spawn):
+    """One of 12's ranks, all on ``device`` over gloo, of a (1, 2, 2) mesh:
+    (a) the train steps, (b) the fit, (c) the local-reconstructor step, (d)
+    the timings.  Rank 0 also takes each step as one process over the same
+    batch and decodes the val set alone, and compares."""
+    import torch.distributed as dist
+
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.data.dataset import (
+        VideoCaptioningDataset,
+        collate_av_batch,
+        video_dataset_to_video_captions_loader,
+    )
+    from mvc_tpu_torch.data.loader import DataLoader
+    from mvc_tpu_torch.models import AVCaptioningDual
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.parallel import make_global_mesh, shard_params
+    from mvc_tpu_torch.parallel import mesh as mesh_lib
+    from mvc_tpu_torch.training import optimizer as opt_lib
+    from mvc_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    mesh = make_global_mesh(*TPSP_SHAPE)
+    out = {"rank": rank, "coords": mesh.coords(), "started": time.time() - t_spawn}
+    shard, n_shards = mesh.data_shard()
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    data.metadata = data.metadata[:TPSP_ROWS]
+    batches = list(DataLoader(data, batch_size=TRAIN_B, shuffle=False, prefetch=0,
+                              process_index=shard, process_count=n_shards))
+    cfg = TrainerConfig(batch_size=TRAIN_B)
+
+    def start(m, rec="global"):
+        model = AVCaptioningDual(vocab_size=V, teacher_forcing_ratio=1.0, reconstructor_type=rec,
+                                 device=device)
+        params = model.init(torch.Generator().manual_seed(0))
+        params["v_decoder"], params["a_decoder"] = spread_bias(
+            [params["v_decoder"], params["a_decoder"]], seed=41)
+        tr = Trainer("unused.ckpt", log_dir=None, mesh=m)
+        step, _ = tr._build_train_step(model, cfg)
+        if m is None:
+            return model, params, tr, step, GradCapture(opt_lib.make_optimizer(cfg, params),
+                                                        params)
+        params = shard_params(m, params)
+        return model, params, tr, step, WholeGradCapture(opt_lib.make_optimizer(cfg, params),
+                                                         params, m)
+
+    def compare(label, steps_of, rec="global"):
+        """Each step on the mesh, rank 0 also alone; the errors and digests."""
+        model, params, tr, step, opt = start(mesh, rec)
+        tr.set_vocab(data.vocab)
+        if rank == 0:
+            _, ref_params, ref_tr, ref_step, ref_opt = start(None, rec)
+        res = {"loss_rel": [], "grad_worst": [], "same": [], "step_ms": []}
+        for host in steps_of:
+            b = tr._put_batch(host, device)
+            b.pop("_n_real")
+            b = tr._agree_lengths(b)
+            sync(device)
+            t0 = time.perf_counter()
+            params, metrics = step(params, opt, b, None)
+            sync(device)
+            res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            digests = [None] * world
+            dist.all_gather_object(digests, (mesh.coords(), leaf_digests(params, mesh)))
+            same_rep = len({d[1][0] for d in digests}) == 1
+            same_slices = all(d[1][1] == e[1][1] for d in digests for e in digests
+                              if d[0][1] == e[0][1])
+            res["same"].append(same_rep and same_slices)
+            if rank == 0:
+                u = ref_tr._put_batch(host, device)
+                u.pop("_n_real")
+                ref_params, ref_m = ref_step(ref_params, ref_opt, u, None)
+                res["loss_rel"].append(abs(float(metrics[0]) - float(ref_m[0]))
+                                       / abs(float(ref_m[0])))
+                res["grad_worst"].append(grads_against(opt, ref_opt))
+        out[label] = res
+        return model, params, opt
+
+    # (a) three steps, the last batch padded
+    out["rows"] = [int(b["sample_mask"].sum()) for b in batches]
+    out["T"] = [int(b["feat_mask"].shape[1]) for b in batches]
+    _, params, opt = compare("a", batches)
+    sharded = mesh_lib.sharded_leaves(mesh, params)
+    rep = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.leaves]
+    buckets = {"replicated, all 4 ranks": ([g for g, s in zip(rep, sharded) if not s],
+                                           mesh.group),
+               "vocab slices, dp x sp ranks": ([g for g, s in zip(rep, sharded) if s],
+                                               mesh.groups["dp_sp"])}
+    out["buckets"] = {}
+    for name, (grads, group) in buckets.items():
+        mesh_lib.sum_over_ranks(grads, group)
+        ms = device_ms(lambda: mesh_lib.sum_over_ranks(grads, group), 3, device)
+        out["buckets"][name] = (sum(g.numel() for g in grads), ms)
+    del params, opt, rep, buckets
+
+    # (c) local reconstructors, one step
+    compare("c", batches[:1], rec="local")
+
+    # (d) the step at bench.py's T=28, L=8 (median of 5 after 2)
+    rng = np.random.default_rng(11)
+    items = [{"audio": rng.standard_normal((28, 128), dtype=np.float32),
+              "visual": rng.standard_normal((28, 2048), dtype=np.float32),
+              "caption": np.concatenate([[1], rng.integers(4, V, 6), [2]]).astype(np.int32)}
+             for _ in range(TRAIN_B)]
+    host28 = collate_av_batch(items, frame_buckets=(28,), caption_buckets=(8,))
+
+    def step28_ms(m):
+        """The median step of 5 after 2 on ``m`` (None: one process)."""
+        model, params, tr, step, opt = start(m)
+        b = tr._put_batch(host28, device)
+        b.pop("_n_real")
+        times = []
+        for k in range(7):
+            sync(device)
+            t0 = time.perf_counter()
+            params, _m = step(params, opt, b, None)
+            sync(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times[2:]))
+
+    out["step28_ms"] = step28_ms(mesh)
+    if rank == 0:       # the baseline in the same run; the others wait in (b)'s first collective
+        out["step28_alone_ms"] = step28_ms(None)
+
+    # (b) a 1-epoch fit on the mesh, its evals through dual_greedy.cu
+    fit_data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    fit_data.metadata = fit_data.metadata[:TPSP_FIT_ROWS]
+    val = VideoCaptioningDataset(ds, "MSVD", "val", vocab_path=vocab_path, verbose=False)
+    loaders = [DataLoader(d, batch_size=TRAIN_B, shuffle=False, prefetch=0,
+                          process_index=shard, process_count=n_shards) for d in (fit_data, val)]
+    model = AVCaptioningDual(vocab_size=V, teacher_forcing_ratio=1.0, reconstructor_type="global",
+                             device=device)
+    tr = smoke_trainer(os.path.join(TRAIN_ROOT, "tpsp", f"rank{rank}", "fit.ckpt"), mesh=mesh)
+    cfg1 = TrainerConfig(batch_size=TRAIN_B, epochs=1)
+    init = model.init(torch.Generator().manual_seed(0))
+    # spread biases keep the decode clear of near-ties: each rank's eval
+    # batch holds a quarter of the rows, so its keys/P matmuls have another
+    # shape than one process's
+    init["v_decoder"], init["a_decoder"] = spread_bias([init["v_decoder"], init["a_decoder"]],
+                                                       seed=41)
+    dg.dual_greedy_decode.launches = 0
+    t0 = time.perf_counter()
+    params, _, hist = tr.fit(model, init, loaders[0], loaders[1], loaders[1], cfg1)
+    sync(device)
+    out["fit_s"] = time.perf_counter() - t0
+    out["launches"] = dg.dual_greedy_decode.launches
+    out["history"] = hist
+    caps = tr.generated["val", 1]
+    out["n_captions"] = len(caps)
+    if rank == 0:
+        vc = video_dataset_to_video_captions_loader(val, batch_size=TRAIN_B)
+        alone = Trainer("unused.ckpt", log_dir=None)
+        alone.set_vocab(data.vocab)
+        alone._transfer_dtype = tr._transfer_dtype       # the fit's wire: bf16 features
+        _, _, want = alone.eval(model, params, vc, "val", 1, get_scores=False,
+                                max_caption_len=cfg1.eval_max_caption_len)
+        out["eval_equal"] = sum(caps.get(v) == c for v, c in want.items())
+        out["eval_total"] = len(want)
+        out["eval_order"] = list(caps) == list(want)
+        out["eval_differ"] = [(v, caps.get(v), c) for v, c in want.items()
+                              if caps.get(v) != c][:3]
+        eval_agreement(tr, model, vc, data.vocab, caps, lambda bb: plain_dual_greedy(
+            params, bb, cfg1), "tp/sp fit val", 0.99)
+    return out
+
+
+def tpsp_phase(card, ds, vocab_path, device):
+    """12: four spawned ranks on the one card over gloo, a (dp=1, tp=2,
+    sp=2) mesh (NCCL takes one card a rank).  Returns the ranks' eval
+    launches of ``dual_greedy.cu`` in the fit."""
+    from mvc_tpu_torch.parallel.smoke import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tpsp_rank, int(np.prod(TPSP_SHAPE)),
+                        os.path.join(TRAIN_ROOT, "tpsp_rdzv"),
+                        args=(ds, vocab_path, str(device), time.time()), backend="gloo",
+                        device=str(device), timeout_s=400)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    a, c = r0["a"], r0["c"]
+    h = r0["history"]
+    log(f"[{card}] [tp/sp a] 4 ranks (dp, tp, sp) {[r['coords'] for r in ranks]} over gloo on "
+        f"{device}: {secs:.2f} s with start-up; rows a step {r0['rows']} (T {r0['T']}); loss vs "
+        f"one process {[f'{x:.3e}' for x in a['loss_rel']]} (1e-4); worst gradient leaf, "
+        f"gathered, relative in norm {[f'{x:.3e}' for x in a['grad_worst']]} (1e-4); "
+        f"replicated parameters equal and slices consistent "
+        f"{[all(r['a']['same'][k] for r in ranks) for k in range(len(a['same']))]}; step ms "
+        + "; ".join(f"rank {r['rank']} {[round(x, 2) for x in r['a']['step_ms']]}"
+                    for r in ranks))
+    log(f"[{card}] [tp/sp c] local reconstructors, one step: loss {c['loss_rel'][0]:.3e}, worst "
+        f"gradient leaf {c['grad_worst'][0]:.3e} relative (1e-4); same "
+        f"{all(r['c']['same'][0] for r in ranks)}")
+    log(f"[{card}] [tp/sp d] step B={TRAIN_B} T=28 L=8 V={V} f32 over the 4 ranks (median of 5): "
+        + ", ".join(f"rank {r['rank']} {r['step28_ms']:.2f} ms" for r in ranks)
+        + f"; one process alone on the same batch {r0['step28_alone_ms']:.2f} ms "
+        f"({max(r['step28_ms'] for r in ranks) / r0['step28_alone_ms']:.2f}x)"
+        + "; gloo all-reduce of each gradient bucket on the card (median of 3, rank 0): "
+        + ", ".join(f"{k}: {n} f32 ({4 * n / 1e6:.1f} MB) {ms:.4f} ms"
+                    for k, (n, ms) in r0["buckets"].items())
+        + f"; ranks up and meshed {max(r['started'] for r in ranks):.2f} s after the spawn")
+    log(f"[{card}] [tp/sp b] 1-epoch fit over {TPSP_FIT_ROWS} train rows: train "
+        f"{h['train_loss'][0]} val {h['val_loss'][0]} CIDEr {h['val_score'][0]['CIDEr']:.6f}; "
+        f"{r0['fit_s']:.2f} s; dual_greedy launches by rank "
+        f"{[r['launches'] for r in ranks]}; gathered val captions equal to one process's "
+        f"decode {r0['eval_equal']}/{r0['eval_total']} (order {r0['eval_order']}); differing "
+        f"(video, gathered, one process): {r0['eval_differ']}")
+    ok = (max(a["loss_rel"]) <= 1e-4 and max(a["grad_worst"]) <= 1e-4
+          and c["loss_rel"][0] <= 1e-4 and c["grad_worst"][0] <= 1e-4
+          and all(all(r["a"]["same"]) and all(r["c"]["same"]) for r in ranks)
+          and all(r["launches"] >= 1 for r in ranks)
+          and all(r["history"] == h for r in ranks)
+          and r0["eval_equal"] == r0["eval_total"] == r0["n_captions"] and r0["eval_order"]
+          and np.isfinite(h["train_loss"][0]["total"]))
+    if not ok:
+        raise SystemExit("the tp/sp steps, fit or eval disagree with one process")
+    return sum(r["launches"] for r in ranks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3078,6 +3354,12 @@ def main() -> int:
                      {"v_decoder": decoders[0], "a_decoder": decoders[1],
                       "v_reconstructor": None, "a_reconstructor": None},
                      single, {"decoder": s_dec, "reconstructor": None})
+
+    # -- 12. tensor and sequence parallelism, on the same tree
+    t0 = time.perf_counter()
+    p11["dual_greedy_decode"]["tp/sp fit eval, 4 gloo ranks (1, 2, 2) on one card"] = \
+        tpsp_phase(card, ds, vocab_path, device)
+    log(f"[{card}] phase 12: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [

@@ -114,19 +114,19 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dp", default=-1, type=int,
                     help="data-parallel ranks of the mesh (-1: every rank)")
-    ap.add_argument("--tp", default=1, type=int, help="tensor-parallel axis (1 only: not ported)")
+    ap.add_argument("--tp", default=1, type=int,
+                    help="tensor-parallel mesh axis (shards the vocab; one rank a shard)")
     ap.add_argument("--sp", default=1, type=int,
-                    help="sequence-parallel axis (1 only: not ported)")
+                    help="sequence-parallel mesh axis (shards the frame axis T)")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     """Runs the selected experiments; returns their histories in order."""
     args = parse_args(argv)
-    given = [f"--{name} {getattr(args, name)}" for name in ("tp", "sp") if getattr(args, name) > 1]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: tensor and sequence parallelism are not "
-                                  "ported yet (ROADMAP.md §1)")
+    if args.model == "transformer" and args.tp * args.sp > 1:
+        raise NotImplementedError("--model transformer with --tp or --sp above 1 is not ported "
+                                  "(ROADMAP.md §1)")
 
     import torch
 
@@ -140,11 +140,12 @@ def main(argv=None):
     from mvc_tpu_torch.utils.jax_weights import from_numpy_tree
 
     owns_group = distributed.process_group() is None
-    rank, world = distributed.initialize(device="cpu" if args.device == "cpu" else None)
+    rank, _ = distributed.initialize(device="cpu" if args.device == "cpu" else None)
     device = (distributed.local_devices()[0] if distributed.process_group() is not None
               else resolve_device(args.device))
     mesh = make_mesh(dp=args.dp, tp=args.tp, sp=args.sp, devices=[device])
     print(f"Mesh: {mesh}")
+    shard, n_shards = mesh.data_shard()
     dataset_folder = os.path.join(args.data_root, args.dataset)
     vocab_path = os.path.join(dataset_folder, "metadata", "vocab.json")
     if not os.path.isfile(vocab_path):
@@ -181,7 +182,7 @@ def main(argv=None):
                              batch_size=cfg.batch_size, vocab_path=vocab_path,
                              video_only=video_only, frame_buckets=tuple(cfg.frame_buckets),
                              caption_buckets=tuple(cfg.caption_buckets),
-                             process_index=rank, process_count=world)
+                             process_index=shard, process_count=n_shards)
         train_loader, _ = get_loader(split=args.split_train, **loader_kwargs)
         val_loader, _ = get_loader(split="val", **loader_kwargs)
         # the reference aliases test to val

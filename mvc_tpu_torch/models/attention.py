@@ -6,6 +6,8 @@
     context    = sum_t weights_t * v_t
 
 The key projection ``U v_t`` is time-invariant and computed once per clip.
+With ``shards`` whose frames are split over sp (``parallel/collectives.py``)
+the softmax's max and denominator and the context sum span the sp ranks.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from mvc_tpu_torch.models.initializers import linear_params
+from mvc_tpu_torch.parallel import collectives
 
 
 def init_attention(gen, hidden_size: int, feature_size: int, bottleneck_size: int,
@@ -37,36 +40,32 @@ def precompute_keys(params, feats: torch.Tensor) -> torch.Tensor:
 
 
 def masked_softmax(energies: torch.Tensor, mask: Optional[torch.Tensor],
-                   dim: int = -1) -> torch.Tensor:
+                   dim: int = -1, shards=None) -> torch.Tensor:
     """Softmax with exact zeros at masked positions.  Rows with no valid
     position yield all-zero weights instead of NaN — this keeps the
     service's batch-padding rows (mask all False) finite."""
-    if mask is None:
+    if mask is None and not collectives.frames_split(shards):
         return torch.softmax(energies, dim=dim)
-    e = energies.masked_fill(~mask, float("-inf"))
-    m = e.amax(dim=dim, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    unnorm = torch.where(mask, torch.exp(e - m), torch.zeros_like(e))
-    denom = unnorm.sum(dim=dim, keepdim=True)
-    return unnorm / torch.clamp(denom, min=torch.finfo(energies.dtype).tiny)
+    return collectives.frame_softmax(energies, mask, shards, dim)
 
 
 def attention_weights(params, hidden: torch.Tensor, keys: torch.Tensor,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None, shards=None) -> torch.Tensor:
     """hidden [B, H], keys [B, T, A] -> weights [B, T]."""
     d = keys.dtype
     query = hidden.to(d) @ params["W"].to(d)                      # [B, A]
     energies = torch.tanh(query[:, None, :] + keys + params["b"].to(d)) @ params["w"].to(d)
-    return masked_softmax(energies, mask, dim=1)
+    return masked_softmax(energies, mask, dim=1, shards=shards)
 
 
 def attend(params, hidden: torch.Tensor, feats: torch.Tensor,
            keys: Optional[torch.Tensor] = None,
-           mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+           mask: Optional[torch.Tensor] = None,
+           shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden [B, H], feats [B, T, F], keys [B, T, A], mask [B, T] bool
     (True = attendable) -> (context [B, F], weights [B, T])."""
     if keys is None:
         keys = precompute_keys(params, feats)
-    weights = attention_weights(params, hidden, keys, mask)
-    context = torch.einsum("bt,btf->bf", weights, feats)
+    weights = attention_weights(params, hidden, keys, mask, shards)
+    context = collectives.frame_sum(torch.einsum("bt,btf->bf", weights, feats), shards)
     return context, weights

@@ -11,6 +11,12 @@ Like the JAX models they are stateless config holders; parameters live in
 a plain dict tree with the JAX layout (``decoder`` / ``reconstructor`` for
 the single model, ``v_decoder`` / ``a_decoder`` / ``v_reconstructor`` /
 ``a_reconstructor`` for the dual one).
+
+The training forwards take ``shards`` (``parallel/collectives.Shards``):
+a rank of a tp/sp mesh then holds its vocab slice of each decoder's
+embedding and projection and its block of the frames, and its outputs are
+its vocab slice of the log-probs and, for a local reconstructor, the
+reconstruction of its own frames.
 """
 
 from __future__ import annotations
@@ -97,32 +103,32 @@ def dual_decode_fused(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderCo
                       visual: torch.Tensor, audio: torch.Tensor,
                       captions: Optional[torch.Tensor], teacher_forcing_ratio: float,
                       gen: Optional[torch.Generator], feat_mask: Optional[torch.Tensor],
-                      dtype=torch.float32, max_caption_len: int = 30):
+                      dtype=torch.float32, max_caption_len: int = 30, shards=None):
     """Both decoders' ``decoder.decode`` (``mvc_tpu/models/captioning.py:188``),
     each with its own teacher-forcing coins, feeding its own argmax when not
     forced; ratio >= 1 takes the hoisted path.  Returns (v_outputs,
     v_hiddens, a_outputs, a_hiddens), each [L, B, *], row 0 zero."""
     gen = _shared_gen(teacher_forcing_ratio, gen)
     v_o, v_h = dec.decode(v_params, v_cfg, visual, captions, max_caption_len,
-                          teacher_forcing_ratio, gen, feat_mask, dtype)
+                          teacher_forcing_ratio, gen, feat_mask, dtype, shards)
     a_o, a_h = dec.decode(a_params, a_cfg, audio, captions, max_caption_len,
-                          teacher_forcing_ratio, gen, feat_mask, dtype)
+                          teacher_forcing_ratio, gen, feat_mask, dtype, shards)
     return v_o, v_h, a_o, a_h
 
 
 def dual_decode_hiddens(v_params, a_params, v_cfg: DecoderConfig, a_cfg: DecoderConfig,
                         visual: torch.Tensor, audio: torch.Tensor, captions: torch.Tensor,
                         teacher_forcing_ratio: float, gen: Optional[torch.Generator],
-                        feat_mask: Optional[torch.Tensor], dtype=torch.float32):
+                        feat_mask: Optional[torch.Tensor], dtype=torch.float32, shards=None):
     """Hiddens-only dual training decode (``mvc_tpu/models/captioning.py:257``):
     the trajectories of ``dual_decode_fused`` without stacking either
     decoder's [L, B, V] log-probs.  Returns (v_hiddens, a_hiddens), each
     [L, B, H] f32, row 0 zero."""
     gen = _shared_gen(teacher_forcing_ratio, gen)
     return (dec.decode_hiddens(v_params, v_cfg, visual, captions, teacher_forcing_ratio, gen,
-                               feat_mask, dtype),
+                               feat_mask, dtype, shards),
             dec.decode_hiddens(a_params, a_cfg, audio, captions, teacher_forcing_ratio, gen,
-                               feat_mask, dtype))
+                               feat_mask, dtype, shards))
 
 
 def captions_from_tokens(vocab, tokens) -> List[str]:
@@ -139,6 +145,19 @@ def _weight_shapes(decoder):
     return quant.map_quantized(decoder, lambda w: w["q"])
 
 
+def _reconstruct(params, cfg: ReconstructorConfig, hiddens, outputs, captions, t_local: int,
+                 dtype, shards) -> Optional[torch.Tensor]:
+    """``reconstructor.reconstruct`` over the clip's whole frame count; with
+    frames split over sp a local reconstruction runs its recurrence over
+    every frame and keeps this rank's block (a global one has no frame
+    axis)."""
+    t = t_local if shards is None else shards.global_frames(t_local)
+    recons = rec.reconstruct(params, cfg, hiddens, outputs, captions, feat_len=t, dtype=dtype)
+    if recons is None or shards is None or cfg.type != "local":
+        return recons
+    return shards.own_frames(recons)
+
+
 def _check_reconstructor_type(reconstructor_type: str) -> None:
     if reconstructor_type not in ("none", "global", "local"):
         raise ValueError(f"reconstructor_type must be none, global or local, "
@@ -150,6 +169,9 @@ class AVCaptioning:
     ``[audio | visual]`` features (F=2176 at the reference widths) and one
     reconstructor of the concatenated features, whose output is split back
     at the audio width, audio first."""
+
+    # forward takes ``shards=``: trains on a tp/sp mesh (parallel/collectives.py)
+    shardable = True
 
     def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
                  reconstructor_type: str = "none",
@@ -185,7 +207,7 @@ class AVCaptioning:
     def forward(self, params, audio: torch.Tensor, visual: torch.Tensor,
                 captions: torch.Tensor, gen: Optional[torch.Generator] = None,
                 teacher_forcing_ratio: Optional[float] = None,
-                feat_mask: Optional[torch.Tensor] = None):
+                feat_mask: Optional[torch.Tensor] = None, shards=None):
         """(outputs [L, B, V] log-probs, audio_recons, visual_recons)
         (``mvc_tpu/models/captioning.py:444``): the decoder over
         ``[audio | visual]``, its teacher-forcing coins drawn from ``gen``,
@@ -194,15 +216,15 @@ class AVCaptioning:
         features = torch.cat([audio, visual], dim=-1)
         outputs, hiddens = dec.decode(params["decoder"], self.decoder_config, features, captions,
                                       captions.shape[0], tf, gen, feat_mask,
-                                      self.dtype)
-        recons = rec.reconstruct(params["reconstructor"], self.reconstructor_config, hiddens,
-                                 outputs, captions, feat_len=features.shape[1], dtype=self.dtype)
+                                      self.dtype, shards)
+        recons = _reconstruct(params["reconstructor"], self.reconstructor_config, hiddens,
+                              outputs, captions, features.shape[1], self.dtype, shards)
         return (outputs, *self._split(recons, audio.shape[2]))
 
     def forward_hiddens(self, params, audio: torch.Tensor, visual: torch.Tensor,
                         captions: torch.Tensor, gen: Optional[torch.Generator] = None,
                         teacher_forcing_ratio: Optional[float] = None,
-                        feat_mask: Optional[torch.Tensor] = None):
+                        feat_mask: Optional[torch.Tensor] = None, shards=None):
         """The fused-loss forward (``mvc_tpu/models/captioning.py:472``): the
         trajectory and reconstruction of ``forward`` without the [L, B, V]
         stack.  Returns ((hiddens,), (out,) vocab projection, audio_recons,
@@ -210,9 +232,9 @@ class AVCaptioning:
         tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
         features = torch.cat([audio, visual], dim=-1)
         hiddens = dec.decode_hiddens(params["decoder"], self.decoder_config, features, captions,
-                                     tf, gen, feat_mask, self.dtype)
-        recons = rec.reconstruct(params["reconstructor"], self.reconstructor_config, hiddens,
-                                 None, captions, feat_len=features.shape[1], dtype=self.dtype)
+                                     tf, gen, feat_mask, self.dtype, shards)
+        recons = _reconstruct(params["reconstructor"], self.reconstructor_config, hiddens,
+                              None, captions, features.shape[1], self.dtype, shards)
         return ((hiddens,), (params["decoder"]["out"],), *self._split(recons, audio.shape[2]))
 
     def predict_tokens(self, params, audio: torch.Tensor, visual: torch.Tensor,
@@ -299,6 +321,9 @@ class AVCaptioningDual:
     Fusion is an elementwise sum of the two decoders' log-probs; each
     decoder has its own reconstructor (``reconstructor_type``)."""
 
+    # forward takes ``shards=``: trains on a tp/sp mesh (parallel/collectives.py)
+    shardable = True
+
     def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
                  reconstructor_type: str = "none",
                  visual_decoder_config: Optional[DecoderConfig] = None,
@@ -335,31 +360,32 @@ class AVCaptioningDual:
             "a_reconstructor": rec.init_reconstructor(gen, self.a_rec_config, device=d),
         }
 
-    def _reconstruct(self, params, v_h, a_h, v_out, a_out, captions, audio, visual):
-        a_rec = rec.reconstruct(params["a_reconstructor"], self.a_rec_config, a_h, a_out,
-                                captions, feat_len=audio.shape[1], dtype=self.dtype)
-        v_rec = rec.reconstruct(params["v_reconstructor"], self.v_rec_config, v_h, v_out,
-                                captions, feat_len=visual.shape[1], dtype=self.dtype)
+    def _reconstruct(self, params, v_h, a_h, v_out, a_out, captions, audio, visual, shards):
+        a_rec = _reconstruct(params["a_reconstructor"], self.a_rec_config, a_h, a_out, captions,
+                             audio.shape[1], self.dtype, shards)
+        v_rec = _reconstruct(params["v_reconstructor"], self.v_rec_config, v_h, v_out, captions,
+                             visual.shape[1], self.dtype, shards)
         return a_rec, v_rec
 
     def forward(self, params, audio: torch.Tensor, visual: torch.Tensor,
                 captions: torch.Tensor, gen: Optional[torch.Generator] = None,
                 teacher_forcing_ratio: Optional[float] = None,
-                feat_mask: Optional[torch.Tensor] = None):
+                feat_mask: Optional[torch.Tensor] = None, shards=None):
         """(outputs [L, B, V] summed log-probs, audio_recons, visual_recons)
         (``mvc_tpu/models/captioning.py:658``); each decoder draws its own
         teacher-forcing coins from ``gen``."""
         tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
         v_out, v_h, a_out, a_h = dual_decode_fused(
             params["v_decoder"], params["a_decoder"], self.v_config, self.a_config,
-            visual, audio, captions, tf, gen, feat_mask, self.dtype)
-        a_rec, v_rec = self._reconstruct(params, v_h, a_h, v_out, a_out, captions, audio, visual)
+            visual, audio, captions, tf, gen, feat_mask, self.dtype, shards=shards)
+        a_rec, v_rec = self._reconstruct(params, v_h, a_h, v_out, a_out, captions, audio, visual,
+                                         shards)
         return a_out + v_out, a_rec, v_rec
 
     def forward_hiddens(self, params, audio: torch.Tensor, visual: torch.Tensor,
                         captions: torch.Tensor, gen: Optional[torch.Generator] = None,
                         teacher_forcing_ratio: Optional[float] = None,
-                        feat_mask: Optional[torch.Tensor] = None):
+                        feat_mask: Optional[torch.Tensor] = None, shards=None):
         """The fused-loss forward (``mvc_tpu/models/captioning.py:702``): the
         trajectories and reconstructions of ``forward`` without either
         [L, B, V] stack.  Returns ((v_hiddens, a_hiddens), (v_out, a_out)
@@ -367,8 +393,9 @@ class AVCaptioningDual:
         tf = self.teacher_forcing_ratio if teacher_forcing_ratio is None else teacher_forcing_ratio
         v_h, a_h = dual_decode_hiddens(
             params["v_decoder"], params["a_decoder"], self.v_config, self.a_config,
-            visual, audio, captions, tf, gen, feat_mask, self.dtype)
-        a_rec, v_rec = self._reconstruct(params, v_h, a_h, None, None, captions, audio, visual)
+            visual, audio, captions, tf, gen, feat_mask, self.dtype, shards)
+        a_rec, v_rec = self._reconstruct(params, v_h, a_h, None, None, captions, audio, visual,
+                                         shards)
         outs = (params["v_decoder"]["out"], params["a_decoder"]["out"])
         return (v_h, a_h), outs, a_rec, v_rec
 

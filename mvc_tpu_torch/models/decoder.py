@@ -8,6 +8,11 @@ Params are a plain dict of tensors with the JAX package's layout:
 ``rnn.{wi [E+F, G*H], wh [H, G*H], bi, bh}`` (embedding rows first in
 ``wi``) and ``out.{w [H, V], b [V]}``.  Log-probs are taken in float32
 whatever the compute dtype.
+
+The training decodes (``decode``, ``decode_hiddens`` and what they call)
+take ``shards`` (``parallel/collectives.Shards``): the embedding lookup,
+the log-softmax and the free-run argmax then span a vocab sharded over tp,
+and the attention a frame axis sharded over sp.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.models.initializers import embedding_params, linear_params
 from mvc_tpu_torch.ops import quant
 from mvc_tpu_torch.ops._decode_common import _use_factored
+from mvc_tpu_torch.parallel import collectives
 
 
 def cast_params_for_decode(params, dtype):
@@ -79,18 +85,19 @@ def decode_operands(params, feats: torch.Tensor, dtype):
 def decoder_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
                  feats: torch.Tensor, keys: torch.Tensor,
                  feat_mask: Optional[torch.Tensor], dtype=torch.float32,
-                 P: Optional[torch.Tensor] = None):
+                 P: Optional[torch.Tensor] = None, shards=None):
     """One word step.  Returns (log_probs [B, V] float32, new_state,
     attn_weights [B, T]).  With ``P`` the context rows of ``wi`` are replaced
     by the attention-weighted sum over P."""
-    embedded = params["embedding"]["table"][prev_tokens].to(dtype)
+    embedded = collectives.embed(params["embedding"]["table"], prev_tokens, shards).to(dtype)
     h = rnn.state_hidden(cfg.rnn_type, state)
-    context, weights = attn.attend(params["attention"], h, feats, keys=keys, mask=feat_mask)
+    context, weights = attn.attend(params["attention"], h, feats, keys=keys, mask=feat_mask,
+                                   shards=shards)
     if P is not None:
         E = embedded.shape[-1]
         wi = params["rnn"]["wi"]
         gi = (embedded @ wi[:E].to(dtype) + params["rnn"]["bi"].to(dtype)
-              + torch.einsum("bt,bth->bh", weights, P))
+              + collectives.frame_sum(torch.einsum("bt,bth->bh", weights, P), shards))
         _, new_state = rnn.rnn_step_pre(params["rnn"], cfg.rnn_type, gi, state)
     else:
         x = torch.cat([embedded, context.to(dtype)], dim=-1)
@@ -98,7 +105,7 @@ def decoder_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
     h_new = rnn.state_hidden(cfg.rnn_type, new_state)
     logits = (h_new @ rnn.wmat(params["out"]["w"], dtype)
               + params["out"]["b"].to(dtype)).float()
-    return torch.log_softmax(logits, dim=-1), new_state, weights
+    return collectives.log_softmax(logits, shards), new_state, weights
 
 
 def decode_greedy_tokens(params, cfg: DecoderConfig, feats: torch.Tensor,
@@ -169,7 +176,9 @@ def _train_factored(B: int, T: int, F: int, H4: int, L: int) -> bool:
     """The training factoring rule (``mvc_tpu/models/decoder.py:153-164``):
     P's build GEMM and its backward must pay for themselves over only L-1
     scan steps, so P = feats @ wi_ctx is taken only when T < L-1 and the
-    decode rule holds."""
+    decode rule holds.  ``T`` is the clip's whole frame count, also where
+    a rank holds a block of it (sp), so that every shard takes the path one
+    program takes."""
     return T < L - 1 and _use_factored(B * T, F, H4)
 
 
@@ -181,7 +190,7 @@ def _fed_tokens(captions: torch.Tensor) -> torch.Tensor:
 
 
 def _tf_hoisted_hiddens(params, cfg: DecoderConfig, feats, captions, feat_mask, dtype,
-                        keys) -> torch.Tensor:
+                        keys, shards=None) -> torch.Tensor:
     """Teacher-forced hiddens [L-1, B, H] f32 with every hoistable GEMM
     hoisted (``mvc_tpu/models/decoder.py:125``): the embedded-side input
     GEMM runs once over all steps, the context rows of ``wi`` ride
@@ -191,45 +200,50 @@ def _tf_hoisted_hiddens(params, cfg: DecoderConfig, feats, captions, feat_mask, 
     E = cfg.embedding_size
     wi = params["rnn"]["wi"]
     H4 = wi.shape[1]
-    emb_all = params["embedding"]["table"][_fed_tokens(captions)].to(dtype)   # [L-1, B, E]
+    emb_all = collectives.embed(params["embedding"]["table"], _fed_tokens(captions),
+                                shards).to(dtype)                             # [L-1, B, E]
     gi_emb = emb_all @ wi[:E].to(dtype) + params["rnn"]["bi"].to(dtype)       # [L-1, B, H4]
-    factored = _train_factored(B, feats.shape[1], feats.shape[2], H4, L)
+    T = feats.shape[1] if shards is None else shards.global_frames(feats.shape[1])
+    factored = _train_factored(B, T, feats.shape[2], H4, L)
     P = feats @ wi[E:].to(dtype) if factored else None                        # [B, T, H4]
     state = rnn.init_state(cfg.rnn_type, B, cfg.rnn_hidden_size, dtype, feats.device)
     hiddens = []
     for t in range(L - 1):
         h = rnn.state_hidden(cfg.rnn_type, state)
         if factored:
-            weights = attn.attention_weights(params["attention"], h, keys, feat_mask)
-            gi = gi_emb[t] + torch.einsum("bt,bth->bh", weights, P)
+            weights = attn.attention_weights(params["attention"], h, keys, feat_mask, shards)
+            gi = gi_emb[t] + collectives.frame_sum(torch.einsum("bt,bth->bh", weights, P),
+                                                   shards)
         else:
-            context, _ = attn.attend(params["attention"], h, feats, keys=keys, mask=feat_mask)
+            context, _ = attn.attend(params["attention"], h, feats, keys=keys, mask=feat_mask,
+                                     shards=shards)
             gi = gi_emb[t] + context.to(dtype) @ wi[E:].to(dtype)
         _, state = rnn.rnn_step_pre(params["rnn"], cfg.rnn_type, gi, state)
         hiddens.append(rnn.state_hidden(cfg.rnn_type, state).float())
     return torch.stack(hiddens)
 
 
-def _pad0(x: torch.Tensor, width: int) -> torch.Tensor:
+def _pad0(x: torch.Tensor) -> torch.Tensor:
     """Prepend the contract's zero row 0: [L-1, B, w] -> [L, B, w] f32."""
-    zeros = torch.zeros((1, x.shape[1], width), dtype=torch.float32, device=x.device)
+    zeros = torch.zeros((1, *x.shape[1:]), dtype=torch.float32, device=x.device)
     return torch.cat([zeros, x], dim=0)
 
 
-def _project(params, hiddens, dtype) -> torch.Tensor:
-    """Stacked hiddens -> float32 log-probs over the vocab."""
+def _project(params, hiddens, dtype, shards=None) -> torch.Tensor:
+    """Stacked hiddens -> float32 log-probs over the vocab (this rank's
+    slice of it under tp)."""
     logits = (hiddens.to(dtype) @ rnn.wmat(params["out"]["w"], dtype)
               + params["out"]["b"].to(dtype)).float()
-    return torch.log_softmax(logits, dim=-1)
+    return collectives.log_softmax(logits, shards)
 
 
-def _decode_tf_hoisted(params, cfg: DecoderConfig, feats, captions, feat_mask, dtype, keys):
+def _decode_tf_hoisted(params, cfg: DecoderConfig, feats, captions, feat_mask, dtype, keys,
+                       shards=None):
     """Full teacher forcing: hoisted hiddens, then the vocab projection once
     over the stacked hiddens (``mvc_tpu/models/decoder.py:175``).  Returns
     (outputs [L, B, V], hiddens [L, B, H]), row 0 zero."""
-    hiddens = _tf_hoisted_hiddens(params, cfg, feats, captions, feat_mask, dtype, keys)
-    return (_pad0(_project(params, hiddens, dtype), cfg.output_size),
-            _pad0(hiddens, cfg.rnn_hidden_size))
+    hiddens = _tf_hoisted_hiddens(params, cfg, feats, captions, feat_mask, dtype, keys, shards)
+    return _pad0(_project(params, hiddens, dtype, shards)), _pad0(hiddens)
 
 
 def teacher_forcing_coins(ratio: float, L: int, gen: Optional[torch.Generator]) -> torch.Tensor:
@@ -242,19 +256,20 @@ def teacher_forcing_coins(ratio: float, L: int, gen: Optional[torch.Generator]) 
     return torch.rand((L,), generator=gen) < ratio
 
 
-def _free_run(params, cfg, feats, keys, gold, use_tf, feat_mask, dtype, keep_outputs):
+def _free_run(params, cfg, feats, keys, gold, use_tf, feat_mask, dtype, keep_outputs,
+              shards=None):
     """The generic decode loop: per step ``decoder_step``, then the gold
     token where the step's coin says so, else the argmax, fed back.
     Returns (stacked log-probs or None, stacked hiddens f32), [L-1, B, *]."""
     B = feats.shape[0]
     state = rnn.init_state(cfg.rnn_type, B, cfg.rnn_hidden_size, dtype, feats.device)
     prev = torch.full((B,), SOS_ID, dtype=torch.long, device=feats.device)
-    outs = [torch.zeros((0, B, cfg.output_size), device=feats.device)]
+    outs = [torch.zeros((0, B, params["out"]["b"].shape[0]), device=feats.device)]
     hiddens = [torch.zeros((0, B, cfg.rnn_hidden_size), device=feats.device)]
     for t in range(1, gold.shape[0]):
         log_probs, state, _ = decoder_step(params, cfg, prev, state, feats, keys, feat_mask,
-                                           dtype)
-        prev = gold[t].long() if bool(use_tf[t]) else torch.argmax(log_probs, dim=-1)
+                                           dtype, shards=shards)
+        prev = gold[t].long() if bool(use_tf[t]) else collectives.argmax(log_probs, shards)
         if keep_outputs:
             outs.append(log_probs[None])
         hiddens.append(rnn.state_hidden(cfg.rnn_type, state).float()[None])
@@ -264,7 +279,7 @@ def _free_run(params, cfg, feats, keys, gold, use_tf, feat_mask, dtype, keep_out
 def decode(params, cfg: DecoderConfig, feats: torch.Tensor,
            captions: Optional[torch.Tensor] = None, max_caption_len: int = 30,
            teacher_forcing_ratio: float = 1.0, gen: Optional[torch.Generator] = None,
-           feat_mask: Optional[torch.Tensor] = None, dtype=torch.float32):
+           feat_mask: Optional[torch.Tensor] = None, dtype=torch.float32, shards=None):
     """Full-sentence decode (``mvc_tpu/models/decoder.py:207``).  Ratio >= 1
     takes the hoisted path; otherwise one coin per step from ``gen`` picks
     gold or argmax feeding.  Returns (outputs [L, B, V] log-probs,
@@ -274,17 +289,19 @@ def decode(params, cfg: DecoderConfig, feats: torch.Tensor,
     feats = feats.to(dtype)
     keys = attn.precompute_keys(params["attention"], feats)
     if captions is not None and teacher_forcing_ratio >= 1.0 and L > 1:
-        return _decode_tf_hoisted(params, cfg, feats, captions, feat_mask, dtype, keys)
+        return _decode_tf_hoisted(params, cfg, feats, captions, feat_mask, dtype, keys, shards)
     use_tf = teacher_forcing_coins(teacher_forcing_ratio if captions is not None else 0.0, L, gen)
     gold = captions if captions is not None else torch.zeros(
         (L, B), dtype=torch.long, device=feats.device)
-    outs, hiddens = _free_run(params, cfg, feats, keys, gold, use_tf, feat_mask, dtype, True)
-    return _pad0(outs, cfg.output_size), _pad0(hiddens, cfg.rnn_hidden_size)
+    outs, hiddens = _free_run(params, cfg, feats, keys, gold, use_tf, feat_mask, dtype, True,
+                              shards)
+    return _pad0(outs), _pad0(hiddens)
 
 
 def decode_hiddens(params, cfg: DecoderConfig, feats: torch.Tensor, captions: torch.Tensor,
                    teacher_forcing_ratio: float = 1.0, gen: Optional[torch.Generator] = None,
-                   feat_mask: Optional[torch.Tensor] = None, dtype=torch.float32):
+                   feat_mask: Optional[torch.Tensor] = None, dtype=torch.float32,
+                   shards=None):
     """Hiddens-only training decode (``mvc_tpu/models/decoder.py:265``): the
     trajectory of ``decode`` without stacking the [L, B, V] log-probs.
     Returns hiddens [L, B, H] f32, row 0 zero."""
@@ -292,9 +309,10 @@ def decode_hiddens(params, cfg: DecoderConfig, feats: torch.Tensor, captions: to
     feats = feats.to(dtype)
     keys = attn.precompute_keys(params["attention"], feats)
     if teacher_forcing_ratio >= 1.0 and L > 1:
-        hiddens = _tf_hoisted_hiddens(params, cfg, feats, captions, feat_mask, dtype, keys)
+        hiddens = _tf_hoisted_hiddens(params, cfg, feats, captions, feat_mask, dtype, keys,
+                                      shards)
     else:
         use_tf = teacher_forcing_coins(teacher_forcing_ratio, L, gen)
         _, hiddens = _free_run(params, cfg, feats, keys, captions, use_tf, feat_mask, dtype,
-                               False)
-    return _pad0(hiddens, cfg.rnn_hidden_size)
+                               False, shards)
+    return _pad0(hiddens)

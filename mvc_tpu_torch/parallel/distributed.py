@@ -93,7 +93,8 @@ def process_group():
 
 
 def data_shard() -> Tuple[int, int]:
-    """(process_index, process_count) for DataLoader sharding."""
+    """(process_index, process_count) for DataLoader sharding over data
+    parallelism alone; on a tp/sp mesh the loaders take ``Mesh.data_shard``."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -109,8 +110,8 @@ def local_devices() -> List[torch.device]:
     return [torch.device("cpu")]
 
 
-def make_global_mesh(dp: int = -1, tp: int = 1):
-    """The mesh over every rank's device."""
+def make_global_mesh(dp: int = -1, tp: int = 1, sp: int = 1):
+    """The mesh over every rank's device (every rank calls it together)."""
     from mvc_tpu_torch.parallel.mesh import make_mesh
 
-    return make_mesh(dp=dp, tp=tp, devices=local_devices())
+    return make_mesh(dp=dp, tp=tp, sp=sp, devices=local_devices())

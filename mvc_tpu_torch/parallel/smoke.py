@@ -6,7 +6,8 @@ run literally the same model, loss and step, so the comparison means
 something.  ``spawn_ranks`` starts N ranks of one function in fresh
 interpreters (``spawn``, never ``fork``: CUDA may already be initialized
 in the caller), joined through a ``file://`` rendezvous in a directory of
-the caller's, and kills them all at a deadline so a hang fails fast.
+the caller's, each with its share of the host's cores as torch threads, and
+kills them all at a deadline so a hang fails fast.
 """
 
 from __future__ import annotations
@@ -47,50 +48,54 @@ def make_smoke_loss():
 def make_smoke_train_step(model, loss_fn, mesh=None):
     """step(params, opt, batch, gen) -> (loss, grad_norm, param_norm), the
     cross-process equivalence observables, as floats.  With a mesh whose
-    process group holds several ranks, each rank's batch is its shard:
-    the batch means divide by the counts over the ranks and the gradients
-    and the loss are summed over them (``training/trainer.py``'s step)."""
+    process group holds several ranks, each rank's batch is its shard
+    (``shard_batch``) and, on a tp mesh, its params are its vocab slices
+    (``shard_params``): the batch means divide by the counts over the
+    ranks, each rank's loss is its share of the global loss, and the
+    gradients and the loss are summed over the ranks that hold the same
+    slice (``training/trainer.py``'s step)."""
+    from mvc_tpu_torch.parallel import mesh as mesh_lib
+
     group = mesh.group if mesh is not None and mesh.world_size > 1 else None
 
     def step(params, opt, batch, gen):
         fm = batch["feat_mask"]
-        counts = None
+        counts = shards = None
         if group is not None:
+            shards = mesh.shards(model.vocab_size, batch.get("frames_split", False))
             counts = loss_lib.global_counts(batch["captions"], None, fm,
-                                            batch["audio"].shape[1], group, mesh.world_size)
+                                            batch["audio"].shape[1], group,
+                                            mesh.groups.get("dp", group), shards)
         outputs, a_rec, v_rec = model.forward(params, batch["audio"], batch["visual"],
-                                              batch["captions"], gen=gen, feat_mask=fm)
+                                              batch["captions"], gen=gen, feat_mask=fm,
+                                              shards=shards)
         loss = loss_fn(outputs, batch["captions"], batch["audio"], a_rec, batch["visual"],
                        v_rec, feat_mask=fm, counts=counts)[0]
         loss.backward()
         loss = loss.detach().reshape(1)
+        sharded = [False] * len(opt.leaves)
         if group is not None:
-            sum_over_ranks([p.grad for p in opt.leaves] + [loss], group)
-        gnorm = math.sqrt(sum(float((p.grad.double() ** 2).sum()) for p in opt.leaves))
+            sharded = mesh_lib.sharded_leaves(mesh, params)
+            mesh_lib.sum_gradients(mesh, opt.leaves, sharded, [loss])
+        gnorm = _norm([p.grad for p in opt.leaves], sharded, mesh)
         opt.step()
-        pnorm = math.sqrt(sum(float((p.detach().double() ** 2).sum()) for p in opt.leaves))
+        pnorm = _norm([p.detach() for p in opt.leaves], sharded, mesh)
         return float(loss), gnorm, pnorm
 
     return step
 
 
-def sum_over_ranks(tensors: Sequence[torch.Tensor], group, bucket_elems: int = 1 << 23) -> None:
-    """Sum ``tensors`` over the ranks of ``group`` in place, through flat
-    buckets of about ``bucket_elems`` elements (one all-reduce each)."""
-    buckets, cur, size = [], [], 0
-    for t in tensors:
-        cur.append(t)
-        size += t.numel()
-        if size >= bucket_elems:
-            buckets.append(cur)
-            cur, size = [], 0
-    if cur:
-        buckets.append(cur)
-    for bucket in buckets:
-        flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat, group=group)
-        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
-            t.copy_(part.view_as(t))
+def _norm(tensors, sharded, mesh) -> float:
+    """The 2-norm of the whole tree: a vocab-sharded leaf's squares summed
+    over its tp slices."""
+    sq = [float((t.double() ** 2).sum()) for t in tensors]
+    whole = sum(x for x, s in zip(sq, sharded) if not s)
+    parts = sum(x for x, s in zip(sq, sharded) if s)
+    if any(sharded):
+        t = torch.tensor([parts], dtype=torch.float64, device=mesh.device)
+        dist.all_reduce(t, group=mesh.groups["tp"])
+        parts = float(t[0])
+    return math.sqrt(whole + parts)
 
 
 def _rank_main(fn, rank: int, world: int, rdzv_dir: str, backend, device, timeout_s, args):
@@ -100,6 +105,7 @@ def _rank_main(fn, rank: int, world: int, rdzv_dir: str, backend, device, timeou
 
     # a rank still running near the deadline prints where it stands
     faulthandler.dump_traceback_later(max(1.0, timeout_s - 10.0), exit=False)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))   # the ranks share the host
     out = os.path.join(rdzv_dir, f"rank{rank}.pkl")
     try:
         distributed.initialize(f"file://{os.path.join(rdzv_dir, 'rdzv')}", world, rank,

@@ -21,6 +21,12 @@ different numbers of real rows and tokens, so averaging per-rank means
 would weigh them wrongly.  ``counts`` (a ``GlobalCounts``) carries those
 denominators; each rank's loss is then its share of the global loss, and
 the ranks' gradients are summed.
+
+On a tp/sp mesh ``counts.shards`` (``parallel/collectives.Shards``) says
+where the rank stands: the log-softmax, the gold pick and the entropy's
+vocab sum span a vocab sharded over tp, and the feature means a frame axis
+sharded over sp.  The ranks of one dp index then compute the same value of
+each term, which ``rank_shares`` divides among them.
 """
 
 from __future__ import annotations
@@ -32,19 +38,23 @@ from typing import Optional
 import torch
 
 from mvc_tpu_torch.config import PAD_ID
+from mvc_tpu_torch.parallel import collectives
 
 
 @dataclass(frozen=True)
 class GlobalCounts:
     """The batch means' denominators summed over the data-parallel ranks
     (``batch_counts`` all-reduced): non-PAD gold tokens, real rows, and real
-    frames of real rows.  ``group`` is the ranks' process group when there
-    is more than one rank: the batch-axis entropy then spans the ranks."""
+    frames of real rows.  ``group`` is the process group of the ranks whose
+    rows differ when there is more than one: the batch-axis entropy then
+    spans them.  ``shards``: the rank's place on the tp and sp axes, or
+    None."""
 
     tokens: torch.Tensor
     rows: torch.Tensor
     frames: torch.Tensor
     group: object = None
+    shards: Optional[collectives.Shards] = None
 
 
 def batch_counts(captions: torch.Tensor, sample_mask: Optional[torch.Tensor],
@@ -66,14 +76,39 @@ def batch_counts(captions: torch.Tensor, sample_mask: Optional[torch.Tensor],
 
 
 def global_counts(captions: torch.Tensor, sample_mask: Optional[torch.Tensor],
-                  feat_mask: Optional[torch.Tensor], n_frames: int, group,
-                  world_size: int) -> GlobalCounts:
-    """``batch_counts`` summed over the ranks of ``group`` (one all-reduce)."""
+                  feat_mask: Optional[torch.Tensor], n_frames: int, group, row_group,
+                  shards: Optional[collectives.Shards] = None) -> GlobalCounts:
+    """``batch_counts`` summed over the ranks of ``group`` (one all-reduce).
+    With ``shards`` the ranks of one dp index hold the same rows and count
+    them ``copies`` times, and the same frames ``frame_copies`` times (once
+    each across sp when the frames are split), so each sum is divided by
+    that.  ``row_group``: the ranks whose rows differ, None when they are
+    one."""
     import torch.distributed as dist
 
     c = batch_counts(captions, sample_mask, feat_mask, n_frames)
     dist.all_reduce(c, group=group)
-    return GlobalCounts(c[0], c[1], c[2], group=group if world_size > 1 else None)
+    if shards is not None:
+        c = c / torch.tensor([shards.copies, shards.copies, shards.frame_copies],
+                             dtype=c.dtype, device=c.device)
+    return GlobalCounts(c[0], c[1], c[2], group=row_group, shards=shards)
+
+
+def _shards(counts: Optional[GlobalCounts]) -> Optional[collectives.Shards]:
+    return None if counts is None else counts.shards
+
+
+def rank_shares(ce, ent, a_rec, v_rec, rec_type: str, counts: Optional[GlobalCounts]):
+    """This rank's shares of the four loss terms: each term divided by the
+    ranks that compute its same value (a local reconstruction over the
+    rank's own frames by ``frame_copies``, every other term by ``copies``),
+    so that the shares of all ranks add up to the global loss.  The terms
+    as they are without ``shards``."""
+    shards = _shards(counts)
+    if shards is None:
+        return ce, ent, a_rec, v_rec
+    n, n_rec = shards.copies, (shards.frame_copies if rec_type == "local" else shards.copies)
+    return ce / n, ent / n, a_rec / n_rec, v_rec / n_rec
 
 
 def _den(local: torch.Tensor, total: Optional[torch.Tensor]) -> torch.Tensor:
@@ -88,7 +123,7 @@ def nll_loss(outputs: torch.Tensor, captions: torch.Tensor,
     [L, B, V] log-probs, captions [L, B]."""
     logp = outputs[1:]
     gold = captions[1:].long()
-    picked = torch.gather(logp, 2, gold[:, :, None])[:, :, 0]
+    picked = collectives.pick(logp, gold, _shards(counts))
     mask = (gold != PAD_ID).to(logp.dtype)
     return -(picked * mask).sum() / _den(mask.sum(), counts and counts.tokens)
 
@@ -124,21 +159,29 @@ def entropy_loss(outputs_tail: torch.Tensor, ignore_mask: torch.Tensor,
                  counts: Optional[GlobalCounts] = None) -> torch.Tensor:
     """-sum_words mean_batch sum_vocab p*log p over [L-1, B, V] log-probs;
     ``ignore_mask`` [L-1, B] is True on PAD."""
+    shards = _shards(counts)
     if compat_batch_axis and counts is not None and counts.group is not None:
         logp = _batch_axis_log_softmax(outputs_tail, counts.group)
+    elif compat_batch_axis:
+        logp = torch.log_softmax(outputs_tail, dim=1)
     else:
-        logp = torch.log_softmax(outputs_tail, dim=1 if compat_batch_axis else 2)
-    b = (torch.exp(logp) * logp).sum(dim=2)
+        logp = collectives.log_softmax(outputs_tail, shards)
+    b = collectives.vocab_sum(torch.exp(logp) * logp, shards)
     b = torch.where(ignore_mask, torch.zeros_like(b), b)
     return -1.0 * _row_mean(b.sum(dim=0), sample_mask, counts)
 
 
-def _masked_time_mean(x: torch.Tensor, feat_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """[B, T, F] -> [B, F] mean over the real frames (all frames without a mask)."""
-    if feat_mask is None:
+def _masked_time_mean(x: torch.Tensor, feat_mask: Optional[torch.Tensor],
+                      shards: Optional[collectives.Shards] = None) -> torch.Tensor:
+    """[B, T, F] -> [B, F] mean over the real frames (all frames without a
+    mask).  With frames split over sp the sums and each row's frame count
+    span the sp ranks before the count's ``clamp``."""
+    if feat_mask is None and not collectives.frames_split(shards):
         return x.mean(dim=1)
-    m = feat_mask.to(x.dtype)[:, :, None]
-    return (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    m = (torch.ones_like(x[:, :, :1]) if feat_mask is None
+         else feat_mask.to(x.dtype)[:, :, None])
+    s = collectives.frame_sum(torch.cat([(x * m).sum(dim=1), m.sum(dim=1)], dim=1), shards)
+    return s[:, :-1] / torch.clamp(s[:, -1:], min=1.0)
 
 
 def global_reconstruction_loss(features: torch.Tensor, recons: torch.Tensor,
@@ -147,7 +190,7 @@ def global_reconstruction_loss(features: torch.Tensor, recons: torch.Tensor,
                                sample_mask: Optional[torch.Tensor] = None,
                                counts: Optional[GlobalCounts] = None) -> torch.Tensor:
     """features [B, T, F], recons [B, L, F], keep_mask [L, B] bool."""
-    x = _masked_time_mean(features, feat_mask)                       # [B, F]
+    x = _masked_time_mean(features, feat_mask, _shards(counts))      # [B, F]
     m = keep_mask.t().to(recons.dtype)[:, :, None]                   # [B, L, 1]
     caption_len = keep_mask.sum(dim=0).to(recons.dtype)[:, None]
     x_recon = (recons * m).sum(dim=1) / torch.clamp(caption_len, min=1.0)
@@ -207,6 +250,7 @@ def total_reconstruction_loss(outputs, captions, features=None, features_recons=
                        sample_mask=sample_mask, counts=counts)
     rec = _single_reconstruction_loss(captions, features, features_recons,
                                       reconstruction_type, feat_mask, sample_mask, counts)
+    ce, ent, rec, _ = rank_shares(ce, ent, rec, rec, reconstruction_type, counts)
     return ce + reg_lambda * ent + recon_lambda * rec, ce, ent, rec
 
 
@@ -219,7 +263,8 @@ def modality_wise_reconstruction_loss(outputs, captions, audio_features=None,
                                       sample_mask=None, counts=None):
     """Dual-modality loss.  Returns (loss, ce, entropy, audio_recon,
     visual_recon).  ``counts``: the denominators over the data-parallel
-    ranks (``GlobalCounts``), None in one process."""
+    ranks (``GlobalCounts``), None in one process; with ``counts.shards``
+    each is this rank's share (``rank_shares``)."""
     ce = nll_loss(outputs, captions, counts)
     ent = entropy_loss(outputs[1:], captions[1:] == PAD_ID, compat_batch_axis_entropy,
                        sample_mask=sample_mask, counts=counts)
@@ -227,6 +272,7 @@ def modality_wise_reconstruction_loss(outputs, captions, audio_features=None,
                                         rec_type, feat_mask, sample_mask, counts)
     v_rec = _single_reconstruction_loss(captions, visual_features, visual_features_recons,
                                         rec_type, feat_mask, sample_mask, counts)
+    ce, ent, a_rec, v_rec = rank_shares(ce, ent, a_rec, v_rec, rec_type, counts)
     loss = ce + reg_lambda * ent + audio_recon_lambda * a_rec + visual_recon_lambda * v_rec
     return loss, ce, ent, a_rec, v_rec
 

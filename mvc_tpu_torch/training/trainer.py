@@ -17,11 +17,11 @@ dict's six keys, the TensorBoard tags, 10 example captions per eval, the
 checkpoint triggers (best val CIDEr -> main + ``_best``, best val loss ->
 main, ``_last`` at the end) and the ``eval_freq`` cadence.
 
-With ``mesh`` (``parallel/mesh.py``) the trainer is one data-parallel rank
-of the mesh's process group: it trains on ``mesh.device`` over its
-loader's process shard, padded to its share of the ``dp`` axis.  Each step
-first agrees on the batch's caption and frame lengths (the longest over
-the ranks, so every rank draws the same teacher-forcing coins), all-reduces
+With ``mesh`` (``parallel/mesh.py``) the trainer is one rank of the
+mesh's process group: it trains on ``mesh.device`` over its loader's
+process shard, padded to its share of the ``dp`` axis.  Each step first
+agrees on the batch's caption and frame lengths (the longest over the
+ranks, so every rank draws the same teacher-forcing coins), all-reduces
 the few counts the batch means divide by (``losses.GlobalCounts``), and
 after ``backward`` sums the gradients and the step's metrics in flat
 buckets, before the optimizer's value clip.  Rank 0's parameters are
@@ -29,6 +29,19 @@ broadcast when ``fit`` starts.  The eval decodes each rank's share of the
 videos through the kernels, gathers the captions and scores them on rank
 0, which broadcasts the scores so the plateau scheduler and the checkpoint
 choice agree; checkpoints and TensorBoard are rank 0's.
+
+On a tp/sp mesh (one process a shard, models whose ``shardable`` is True:
+the RNN captioners) the loaders of one dp index read the same rows, ``fit``
+keeps each rank's vocab slices of the parameters (``mesh.shard_params``)
+and each step this rank's block of the frames (``mesh.split_frames``); the
+model and the loss reduce across the shards (``parallel/collectives.py``),
+each rank backpropagates its share of the global loss, and each gradient
+leaf is summed over the ranks that hold the same slice of it
+(``mesh.sum_gradients``: replicated leaves over every rank, vocab slices
+over dp·sp).  The fused loss stays off under tp, as in the JAX trainer.  The
+evals gather the slices once and decode with the whole parameters;
+checkpoints hold them whole, with whole Adam moments, so any mesh (or the
+JAX package) loads them.
 """
 
 from __future__ import annotations
@@ -54,8 +67,8 @@ from mvc_tpu_torch.data.feature_cache import (
     quantize_int8,
 )
 from mvc_tpu_torch.evalcap import NLPScore, prepare_native
+from mvc_tpu_torch.parallel import mesh as mesh_lib
 from mvc_tpu_torch.parallel.mesh import pad_batch_to_multiple
-from mvc_tpu_torch.parallel.smoke import sum_over_ranks
 from mvc_tpu_torch.training import fused_loss as fused_lib
 from mvc_tpu_torch.training import losses as loss_lib
 from mvc_tpu_torch.training import optimizer as opt_lib
@@ -102,10 +115,11 @@ def _tree_map(fn, tree):
 class Trainer:
     def __init__(self, checkpoint_name: str, log_dir: Optional[str] = "logs",
                  display_freq: int = 10, eval_freq: int = 10, mesh=None):
-        if mesh is not None and (mesh.shape.get("tp", 1) > 1 or mesh.shape.get("sp", 1) > 1):
-            raise NotImplementedError(
-                "tp > 1 and sp > 1 are not ported yet: the vocab-sharded loss and the "
-                "frame-sharded attention need collectives of their own (ROADMAP.md §1)")
+        self._tp_sp = mesh is not None and mesh.tp * mesh.sp > 1
+        self._sliced = mesh is not None and mesh.tp > 1       # params held as vocab slices
+        if self._tp_sp and mesh.world_size != mesh.size:
+            raise ValueError(f"a tp or sp mesh trains one process a shard: {mesh.size} shards "
+                             f"over {mesh.world_size} processes")
         self.mesh = mesh
         self._group = mesh.group if mesh is not None else None
         self._world = mesh.world_size if mesh is not None else 1
@@ -137,7 +151,8 @@ class Trainer:
         mask_feats = cfg.mask_padded_features
         compute = model.dtype
         use_fused = (cfg.fused_loss and not cfg.compat_batch_axis_entropy
-                     and hasattr(model, "forward_hiddens"))
+                     and hasattr(model, "forward_hiddens")
+                     and (self.mesh is None or self.mesh.tp == 1))
 
         def cast_params(params):
             # bf16 compute: cast the f32 masters once per step, outside the
@@ -147,15 +162,20 @@ class Trainer:
             return _tree_map(lambda p: p.to(compute) if p.dtype == torch.float32 else p, params)
 
         def compute_loss(params, batch, gen, tf_ratio):
+            shards = None
+            if self._tp_sp:
+                batch, split = mesh_lib.split_frames(self.mesh, batch)
+                shards = self.mesh.shards(model.vocab_size, split)
+            kw = {} if shards is None else {"shards": shards}
             feat_mask = batch["feat_mask"] if mask_feats else None
-            counts = self._global_counts(batch, feat_mask)
+            counts = self._global_counts(batch, feat_mask, shards)
             sample_mask = batch.get("sample_mask")
             p = cast_params(params)
             captions = batch["captions"]
             if use_fused:
                 h_list, outs, a_rec, v_rec = model.forward_hiddens(
                     p, batch["audio"], batch["visual"], captions, gen=gen,
-                    teacher_forcing_ratio=tf_ratio, feat_mask=feat_mask)
+                    teacher_forcing_ratio=tf_ratio, feat_mask=feat_mask, **kw)
                 ce, ent = fused_lib.ce_entropy_from_hiddens(
                     h_list, outs, captions, sample_mask=sample_mask, compute_dtype=compute,
                     counts=counts)
@@ -165,12 +185,14 @@ class Trainer:
                 v_l = loss_lib._single_reconstruction_loss(
                     captions, batch["visual"], v_rec, model.reconstructor_type, feat_mask,
                     sample_mask, counts)
+                ce, ent, a_l, v_l = loss_lib.rank_shares(ce, ent, a_l, v_l,
+                                                         model.reconstructor_type, counts)
                 loss = (ce + cfg.reg_lambda * ent + cfg.audio_recon_lambda * a_l
                         + cfg.visual_recon_lambda * v_l)
             else:
                 outputs, a_rec, v_rec = model.forward(
                     p, batch["audio"], batch["visual"], captions, gen=gen,
-                    teacher_forcing_ratio=tf_ratio, feat_mask=feat_mask)
+                    teacher_forcing_ratio=tf_ratio, feat_mask=feat_mask, **kw)
                 loss, ce, ent, a_l, v_l = loss_fn(
                     outputs, captions, batch["audio"], a_rec, batch["visual"], v_rec,
                     feat_mask=feat_mask, sample_mask=sample_mask, counts=counts)
@@ -180,12 +202,8 @@ class Trainer:
             loss, metrics = compute_loss(params, batch, gen, None)
             loss.backward()
             if self._group is not None:      # before the optimizer's value clip
-                grads = []
-                for p in opt.leaves:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                    grads.append(p.grad)
-                sum_over_ranks(grads + [metrics], self._group)
+                mesh_lib.sum_gradients(self.mesh, opt.leaves,
+                                       mesh_lib.sharded_leaves(self.mesh, params), [metrics])
             opt.step()
             return params, metrics
 
@@ -214,13 +232,14 @@ class Trainer:
         return train_step, eval_loss_step
 
     # ------------------------------------------------------------ data parallelism
-    def _global_counts(self, batch, feat_mask) -> Optional[loss_lib.GlobalCounts]:
+    def _global_counts(self, batch, feat_mask, shards) -> Optional[loss_lib.GlobalCounts]:
         """The batch means' denominators summed over the ranks (None without
-        a process group)."""
+        a process group); the batch-axis entropy spans the dp ranks."""
         if self._group is None:
             return None
+        rows = self.mesh.groups.get("dp", self._group) if self._world > 1 else None
         return loss_lib.global_counts(batch["captions"], batch.get("sample_mask"), feat_mask,
-                                      batch["audio"].shape[1], self._group, self._world)
+                                      batch["audio"].shape[1], self._group, rows, shards)
 
     def _max_over_ranks(self, values) -> List[int]:
         """Host integers' maxima over the ranks: through the host under gloo,
@@ -287,7 +306,8 @@ class Trainer:
             ref = batch["audio" if "audio" in batch else "video_rows"]
             if "sample_mask" not in batch:
                 batch = dict(batch, sample_mask=np.ones((ref.shape[0],), bool))
-            batch = pad_batch_to_multiple(batch, self.mesh.shape["dp"] // self._world)
+            dp_ranks = self.mesh.data_shard()[1]
+            batch = pad_batch_to_multiple(batch, max(1, self.mesh.shape["dp"] // dp_ranks))
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         if self._transfer_int8:
             for k in ("audio", "visual"):
@@ -338,11 +358,52 @@ class Trainer:
             yield item
 
     # ------------------------------------------------------------ checkpoints
-    def _main_payload(self, epoch, params, opt):
+    def _whole(self, model, params):
+        """The parameters with every vocab slice gathered (a collective on a
+        tp mesh); ``params`` themselves elsewhere."""
+        if not self._sliced:
+            return params
+        return mesh_lib.gather_params(self.mesh, params, model.vocab_size)
+
+    def _whole_opt_state(self, model, opt):
+        """The optimizer state with whole moments (their vocab slices
+        gathered on a tp mesh, a collective there); None on ranks other
+        than 0."""
+        whole = {}
+        for i, (p, spec) in enumerate(zip(opt.leaves, self._specs)):
+            st = opt.inner.state.get(p)
+            if self._sliced and st and "tp" in spec:
+                whole[i] = {k: mesh_lib.gather_leaf(self.mesh, spec, st[k].float(),
+                                                    model.vocab_size).cpu().numpy()
+                            for k in opt_lib.MOMENTS}
+        if not self._rank0:
+            return None
+        sd = opt.state_dict()
+        for i, moments in whole.items():
+            sd["state"][i].update(moments)
+        return sd
+
+    def _sliced_opt_state(self, sd):
+        """A checkpoint's whole optimizer state cut to this rank's slices."""
+        if not self._sliced or not isinstance(sd, dict) or "state" not in sd:
+            return sd
+        state = {}
+        for i, st in sd["state"].items():
+            spec = self._specs[int(i)] if int(i) < len(self._specs) else ()
+            state[i] = {k: mesh_lib.shard_leaf(self.mesh, spec, v) if k in opt_lib.MOMENTS
+                        else v for k, v in st.items()}
+        return dict(sd, state=state)
+
+    def _main_payload(self, epoch, model, params, opt):
+        """The main checkpoint (whole parameters and moments); None on ranks
+        other than 0, which only take part in the gathers."""
+        params, opt_state = self._whole(model, params), self._whole_opt_state(model, opt)
+        if not self._rank0:
+            return None
         return {
             "epoch": epoch,
             "params": params,
-            "opt_state": opt.state_dict(),
+            "opt_state": opt_state,
             "scheduler": self.lr_scheduler.state_dict(),
             "history": copy.deepcopy(self.history),
             "best_loss": self.best_loss,
@@ -368,7 +429,9 @@ class Trainer:
             train_config: TrainerConfig):
         """Train for ``cfg.epochs`` epochs (resuming from the checkpoint at
         ``checkpoint_name`` when there is one); returns (params, optimizer,
-        history).  The caller's tensors are not modified."""
+        history): the whole parameters, also on a tp mesh, where the
+        optimizer holds this rank's slices.  The caller's tensors are not
+        modified."""
         cfg = train_config
         td = cfg.transfer_dtype
         if td not in (None, "int8", *_DTYPES):
@@ -391,6 +454,11 @@ class Trainer:
         if self.mesh is not None and model.device != self.mesh.device:
             raise ValueError(f"the model is on {model.device}, this rank's mesh device is "
                              f"{self.mesh.device}")
+        if self._tp_sp and not getattr(model, "shardable", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} on a tp or sp mesh is not ported: its FFN "
+                "projections and the encoder's attention over sharded frames need "
+                "collectives of their own (ROADMAP.md §1)")
 
         params, ckpt = self._load(params)
         # the leaves the optimizer trains in place
@@ -398,6 +466,9 @@ class Trainer:
         if self._group is not None:
             for leaf in opt_lib.tree_leaves(params):
                 dist.broadcast(leaf, src=0, group=self._group)
+        if self._sliced:
+            params = mesh_lib.shard_params(self.mesh, params)
+        self._specs = opt_lib.tree_leaves(mesh_lib.param_specs(params))
         self._optimizer = opt_lib.make_optimizer(cfg, params)
         if ckpt is not None:
             self.previous_epochs = ckpt.get("epoch", 0)
@@ -408,7 +479,7 @@ class Trainer:
                 self.lr_scheduler.load_state_dict(ckpt["scheduler"])
             if ckpt.get("opt_state") is not None:
                 try:
-                    self._optimizer.load_state_dict(ckpt["opt_state"])
+                    self._optimizer.load_state_dict(self._sliced_opt_state(ckpt["opt_state"]))
                 except (ValueError, KeyError, TypeError, RuntimeError) as e:
                     print(f"Optimizer state not restored ({e}); reinitializing")
         opt = opt_lib.set_learning_rate(self._optimizer, self.lr_scheduler.lr)
@@ -418,6 +489,8 @@ class Trainer:
 
         eval_kwargs = dict(batch_size=cfg.batch_size, frame_buckets=tuple(cfg.frame_buckets))
         if self.mesh is not None:
+            # every rank decodes its own videos, also on a tp/sp mesh: the
+            # evals decode with the whole parameters
             eval_kwargs.update(process_index=self.mesh.rank, process_count=self._world)
         vidcaps = {phase: video_dataset_to_video_captions_loader(
             loader.dataset, video_only=loader.dataset.video_only, **eval_kwargs)
@@ -436,10 +509,12 @@ class Trainer:
             if epoch % self.eval_freq == 0 or epoch == cfg.epochs:
                 eval_kw = dict(max_caption_len=cfg.eval_max_caption_len, mode=cfg.eval_mode,
                                beam_width=cfg.eval_beam_width, beam_alpha=cfg.eval_beam_alpha)
-                train_score, _, _ = self.eval(model, params, vidcaps["train"], "train", epoch,
+                whole = self._whole(model, params)
+                train_score, _, _ = self.eval(model, whole, vidcaps["train"], "train", epoch,
                                               **eval_kw)
-                val_score, _, _ = self.eval(model, params, vidcaps["val"], "val", epoch,
+                val_score, _, _ = self.eval(model, whole, vidcaps["val"], "val", epoch,
                                             **eval_kw)
+                del whole
                 self.history["train_score"].append(train_score)
                 self.history["val_score"].append(val_score)
                 opt_lib.set_learning_rate(opt, self.lr_scheduler.step(val_score["CIDEr"]))
@@ -458,16 +533,18 @@ class Trainer:
             # one snapshot per epoch whatever the triggers; the pickle and
             # the write run on the saver's thread
             jobs = []
-            if save_main and self._rank0:
-                jobs.append((self.checkpoint_name, self._main_payload(epoch, params, opt)))
+            main = self._main_payload(epoch, model, params, opt) if save_main else None
+            if main is not None:
+                jobs.append((self.checkpoint_name, main))
             if save_best and self._rank0:
                 jobs.append((self.checkpoint_name.replace(".ckpt", "_best.ckpt"),
-                             {"epoch": epoch, "params": params,
+                             {"epoch": epoch, "params": main["params"],
                               "history": copy.deepcopy(self.history)}))
             if jobs:
                 self._saver.submit(jobs)
             print(f"Epoch time: {time.time() - t0:.1f}s")
 
+        params = self._whole(model, params)
         if self._rank0:
             self._saver.submit([(self.checkpoint_name.replace(".ckpt", "_last.ckpt"),
                                  {"epoch": cfg.epochs, "params": params,

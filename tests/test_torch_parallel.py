@@ -323,17 +323,15 @@ def test_replicas_are_made_once_per_device_and_parameter_set():
 
 
 # ------------------------------------------------------------------ the worker
-def test_multihost_worker_two_ranks_equal_one_process(synthetic_msvd, tmp_path):
-    """``python -m mvc_tpu_torch.cli.multihost_worker`` as 2 gloo ranks (a
-    ``file://`` rendezvous): both print the same loss and norms, equal to
-    one process's step over the union of their batches (rel 1e-4, as
-    ``tests/test_multihost.py`` holds the JAX worker)."""
+def _run_workers(synthetic_msvd, tmp_path, extra):
+    """Two ``cli.multihost_worker`` ranks over a ``file://`` rendezvous; their
+    JSON lines."""
     env = dict(os.environ, PYTHONPATH=REPO)
     rdzv = f"file://{tmp_path / 'rdzv'}"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "mvc_tpu_torch.cli.multihost_worker", "--coordinator", rdzv,
          "--num-processes", "2", "--process-id", str(i), "--data-root", str(synthetic_msvd),
-         "--batch-size", "4", "--local-devices", "2", "--device", "cpu"],
+         "--batch-size", "4", "--device", "cpu", *extra],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(2)]
     try:
@@ -345,18 +343,21 @@ def test_multihost_worker_two_ranks_equal_one_process(synthetic_msvd, tmp_path):
         assert p.returncode == 0, err
     lines = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
     assert [ln["process_index"] for ln in lines] == [0, 1]
-    assert all(ln["process_count"] == 2 and ln["global_devices"] == 4 and ln["local_batch"] == 4
-               for ln in lines)
     for k in ("loss", "grad_norm", "param_norm"):
         assert lines[0][k] == lines[1][k], k
+    return lines
 
+
+def _one_process_step(synthetic_msvd, process_count):
+    """One process's smoke step over the first batches of ``process_count``
+    loader shards, side by side: (loss, grad_norm, param_norm)."""
     batches, ds = [], None
-    for i in range(2):
+    for i in range(process_count):
         loader, ds = get_loader(root_dir=str(synthetic_msvd), dataset="MSVD", split="train",
                                 batch_size=4, shuffle=False, verbose=False,
                                 vocab_path=str(synthetic_msvd / "metadata" / "vocab.json"),
                                 frame_buckets=(8,), caption_buckets=(12,),
-                                process_index=i, process_count=2)
+                                process_index=i, process_count=process_count)
         loader.prefetch = 0
         batches.append(next(iter(loader)))
     union = {k: torch.from_numpy(np.concatenate([b[k] for b in batches],
@@ -366,8 +367,32 @@ def test_multihost_worker_two_ranks_equal_one_process(synthetic_msvd, tmp_path):
                                     union["visual"].shape[-1])
     params = model.init(torch.Generator().manual_seed(0))
     opt = topt.make_optimizer(TrainerConfig(), params)
-    loss, gnorm, pnorm = tsmoke.make_smoke_train_step(model, tsmoke.make_smoke_loss())(
-        params, opt, union, None)
+    return tsmoke.make_smoke_train_step(model, tsmoke.make_smoke_loss())(params, opt, union, None)
+
+
+def test_multihost_worker_two_ranks_equal_one_process(synthetic_msvd, tmp_path):
+    """``python -m mvc_tpu_torch.cli.multihost_worker`` as 2 gloo ranks (a
+    ``file://`` rendezvous): both print the same loss and norms, equal to
+    one process's step over the union of their batches (rel 1e-4, as
+    ``tests/test_multihost.py`` holds the JAX worker)."""
+    lines = _run_workers(synthetic_msvd, tmp_path, ["--local-devices", "2"])
+    assert all(ln["process_count"] == 2 and ln["global_devices"] == 4 and ln["local_batch"] == 4
+               for ln in lines)
+    loss, gnorm, pnorm = _one_process_step(synthetic_msvd, 2)
+    for k, want in (("loss", loss), ("grad_norm", gnorm), ("param_norm", pnorm)):
+        assert abs(lines[0][k] - want) <= 1e-4 * abs(want), (k, lines[0][k], want)
+
+
+def test_multihost_worker_tp_ranks_equal_one_process(synthetic_msvd, tmp_path):
+    """The same worker with ``--tp 2``, as ``scripts/multihost_worker.py``
+    takes it: a (dp=1, tp=2) mesh whose ranks both read the first batch and
+    each hold half of every vocab leaf.  Both print the same loss and norms
+    (the sharded leaves' norms summed over tp), equal to one process's step
+    over that batch (rel 1e-4)."""
+    lines = _run_workers(synthetic_msvd, tmp_path, ["--tp", "2"])
+    assert all(ln["process_count"] == 2 and ln["global_devices"] == 2 and ln["local_batch"] == 4
+               for ln in lines)
+    loss, gnorm, pnorm = _one_process_step(synthetic_msvd, 1)
     for k, want in (("loss", loss), ("grad_norm", gnorm), ("param_norm", pnorm)):
         assert abs(lines[0][k] - want) <= 1e-4 * abs(want), (k, lines[0][k], want)
 

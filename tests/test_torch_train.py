@@ -592,23 +592,26 @@ def test_fit_end_to_end_then_resume(synthetic_msvd, tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
-    """What is not ported raises NotImplementedError: a mesh with tp or sp
-    above 1 (the trainer, the CLI's --tp/--sp); the data-parallel mesh, the
-    transformer family, the feature cache, int8 transfer and bf16 Adam
-    state are ported.  A --dp wider than the devices at hand and a transfer
-    dtype of neither package raise ValueError."""
+    """What is not ported raises NotImplementedError: the transformer family
+    on a tp or sp mesh (the CLI's ``--model transformer --tp/--sp``; the
+    trainer's check is in ``tests/test_torch_tensor_parallel.py``); the
+    data-parallel, tensor- and sequence-parallel meshes, the feature cache,
+    int8 transfer and bf16 Adam state are ported.  A tp or sp mesh held by
+    one process (the trainer takes one process a shard), a --dp wider than
+    the devices at hand and a transfer dtype of neither package raise
+    ValueError."""
     from mvc_tpu_torch.cli.train import main
     from mvc_tpu_torch.parallel import make_mesh
     from mvc_tpu_torch.training.trainer import Trainer
 
     for kw in (dict(dp=1, tp=2), dict(dp=1, sp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="one process a shard"):
             Trainer(str(tmp_path / "x.ckpt"), log_dir=None,
                     mesh=make_mesh(devices=["cpu"] * 2, **kw))
     Trainer(str(tmp_path / "x.ckpt"), log_dir=None, mesh=make_mesh(devices=["cpu"] * 2))
-    for extra in (["--model", "transformer", "--tp", "2"], ["--sp", "2"]):
-        with pytest.raises(NotImplementedError):
-            main(["--device", "cpu"] + extra)
+    for extra in (["--tp", "2"], ["--sp", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(["--device", "cpu", "--model", "transformer"] + extra)
     with pytest.raises(ValueError, match="needs more than 1 devices"):
         main(["--device", "cpu", "--dp", "2", "--data_root", str(tmp_path)])
     with pytest.raises(ValueError):
@@ -672,7 +675,9 @@ def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
     epoch on the CPU at the reference widths (one experiment, the JAX
     single-experiment name), with ``--dp 1`` (the same history), then with
     ``--model transformer`` (the transformer's checkpoint under the JAX
-    name); ``--tp``/``--sp`` above 1 raise."""
+    name); in one process, which holds one shard, ``--tp``/``--sp`` above 1
+    raise ValueError (two ranks run them in
+    ``tests/test_torch_tensor_parallel.py``)."""
     from mvc_tpu_torch.cli.train import main
 
     (tmp_path / "data").mkdir()
@@ -685,7 +690,7 @@ def test_train_cli_on_the_cpu(synthetic_msvd, tmp_path, monkeypatch):
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001_last.ckpt").exists()
     assert (tmp_path / "checkpoints" / "MSVD" / "rnn_1_epochs_custom_none_0.001.json").exists()
     for extra in (["--tp", "2"], ["--sp", "2"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="not divisible"):
             main(args + extra)
     # --dp 1 (the default -1 alone is the same 1x1 mesh): the same run
     (tmp_path / "dp1").mkdir()
