@@ -117,6 +117,24 @@ its own failure:
    (d) the step at T=28, L=8 on the mesh and, on rank 0, alone over the
    same batch, each gradient bucket's gloo all-reduce and the ranks'
    start-up timed
+13. the transformer on the tp/sp mesh at full width (``TransformerConfig``'s
+   defaults, V=4000, generator bias spread), on phase 6-7's tree: four
+   ranks spawned on the one card over gloo as a (1, 2, 2) mesh, each with
+   its slice of the embedding (the only leaf JAX's layout splits) and,
+   when sp divides T, its block of the frames: (a) 3 train steps of B=128
+   (the last batch padded), each also taken on rank 0 alone from the
+   mesh's parameters, in float32 and float64: the loss and each gathered
+   gradient leaf within 1e-4 relative of one process's (the attention key
+   biases, whose gradient is zero, within 1e-7 of the largest leaf), the
+   leaves float32 itself does not resolve (one process over 1e-4 from
+   float64) counted and within 1e-3 of float64; replicated parameters
+   equal on every rank, the slices of one tp index equal; (c) the step at
+   T=28, L=8 on the
+   mesh and, on rank 0, alone over the same batch, the all-reduces of one
+   step counted, each gradient bucket's gloo all-reduce timed; (b) a
+   1-epoch ``Trainer.fit`` on the mesh with a direct eval over the gathered
+   parameters, its gathered val captions equal to one process's decode of
+   the same params on >= 99 % of the tokens
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -1693,6 +1711,23 @@ def transformer_model(device):
     return model, model.init(torch.Generator().manual_seed(20))
 
 
+def float64_transformer(dev):
+    """``transformer_model``'s model and weights in float64, its log-softmax
+    too (the model takes log-probs in float32 whatever its dtype, as JAX
+    does): a reference, not a path the port runs."""
+    from mvc_tpu_torch.models import transformer as tmod
+
+    model, params = transformer_model(dev)
+
+    def fused_logp(p, xv, xa):
+        return 0.5 * sum(torch.log_softmax(tmod._proj(p["generator"], tmod._layernorm(ln, x))
+                                           .double(), -1)
+                         for ln, x in ((p["ln_v"], xv), (p["ln_a"], xa)))
+
+    model.dtype, model._fused_logp = torch.float64, fused_logp
+    return model, to_device(params, dev, torch.float64)
+
+
 def spread_generator(params, seed=21, scale=2e-3):
     """The transformer's generator bias spread as ``spread_bias`` spreads the
     RNN decoders' (a seeded permutation x scale)."""
@@ -1830,27 +1865,11 @@ def transformer_step_card_vs_cpu(card, cfg, ds, vocab_path, device):
     is +-lr wherever |g| >> eps, so any two summation orders give
     zero-initialized leaves with near-zero gradient elements different
     updates."""
-    from mvc_tpu_torch.models import transformer as tmod
-
-    def float64_model(dev):
-        """The same model and weights in float64, its log-softmax too (the
-        model takes log-probs in float32 whatever its dtype, as JAX does):
-        a reference, not a path the port runs."""
-        model, params = transformer_model(dev)
-
-        def fused_logp(p, xv, xa):
-            return 0.5 * sum(torch.log_softmax(tmod._proj(p["generator"], tmod._layernorm(ln, x))
-                                               .double(), -1)
-                             for ln, x in ((p["ln_v"], xv), (p["ln_a"], xa)))
-
-        model.dtype, model._fused_logp = torch.float64, fused_logp
-        return model, to_device(params, dev, torch.float64)
-
     batch = first_train_batch(ds, vocab_path)
     runs = {key: train_step_on(make, cfg, batch, dev)
             for key, make, dev in (("card", transformer_model, device),
                                    ("cpu", transformer_model, torch.device("cpu")),
-                                   ("card f64", float64_model, device))}
+                                   ("card f64", float64_transformer, device))}
     (m_c, g_c, _, s_c, _), (m_h, g_h, _, s_h, _), (m_r, g_r, _, _, _) = runs.values()
     loss_rel = abs(float(m_c[0]) - float(m_h[0])) / abs(float(m_h[0]))
     top = max(float(g.norm()) for g in g_r.values())
@@ -3017,6 +3036,289 @@ def tpsp_phase(card, ds, vocab_path, device):
     return sum(r["launches"] for r in ranks)
 
 
+
+# ------------------------------------------------------------------ 13. the transformer on tp/sp
+class GradOnly:
+    """Stands in for the optimizer of a reference step: keeps each leaf's
+    gradient on the host and updates nothing."""
+
+    def __init__(self, params):
+        self.named = named_leaves(params)
+        self.leaves = [p.requires_grad_(True) for _, p in self.named]
+
+    def step(self):
+        self.grads = {k: p.grad.detach().cpu().clone() for k, p in self.named}
+
+
+def rel_norm(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+
+def grads_three_way(mesh, one, f64):
+    """13 (a)'s gradient check, leaf by leaf: each of the mesh's gathered
+    gradients within 1e-4 relative in norm of one process's from the same
+    parameters and batch, except the attention key biases, whose gradient
+    is zero (softmax shift invariance): within 1e-7 of the largest leaf's
+    norm on both.  A float64 step is the exact reference: the leaves that
+    float32 does not resolve (one process further than 1e-4 from float64: a
+    small sum of large cancelling terms, phase 9 (b)) are counted, and must
+    be within 1e-3 of float64 on the mesh and alone.  Returns the numbers
+    and whether all hold."""
+    top = max(float(g.double().norm()) for g in f64.values())
+    zero = [k for k in f64 if k.endswith("/k/b")]
+    err = {k: rel_norm(mesh[k], one[k]) for k in f64 if k not in zero}
+    unresolved = {k: (rel_norm(mesh[k], f64[k]), r) for k in err
+                  if (r := rel_norm(one[k], f64[k])) > 1e-4}
+    z = max(float(g[k].double().norm()) / top for g in (mesh, one) for k in zero)
+    worst = max(err, key=err.get)
+    worst_u = max(unresolved, key=lambda k: max(unresolved[k])) if unresolved else None
+    ok = (err[worst] <= 1e-4 and z <= 1e-7
+          and all(max(v) <= 1e-3 for v in unresolved.values()))
+    return {"leaves": len(err), "worst": (worst, err[worst]),
+            "median": float(np.median(list(err.values()))), "unresolved": len(unresolved),
+            "worst_unresolved": (worst_u, *unresolved[worst_u]) if worst_u else None,
+            "zero": (len(zero), z), "ok": ok}
+
+
+def transformer_tpsp_rank(rank, world, ds, vocab_path, device, t_spawn):
+    """One of 13's ranks, all on ``device`` over gloo, of a (1, 2, 2) mesh,
+    ``TransformerCaptioning`` at full width: (a) the train steps, (c) the
+    step at T=28, L=8, its collectives and the gradient buckets, (b) the
+    fit.  Rank 0 also takes each of (a)'s steps alone from the mesh's
+    parameters, in float32 and float64, and decodes the val set alone."""
+    import torch.distributed as dist
+
+    from mvc_tpu_torch.config import TrainerConfig
+    from mvc_tpu_torch.data.dataset import (
+        VideoCaptioningDataset,
+        collate_av_batch,
+        video_dataset_to_video_captions_loader,
+    )
+    from mvc_tpu_torch.data.loader import DataLoader
+    from mvc_tpu_torch.parallel import gather_params, make_global_mesh, shard_params
+    from mvc_tpu_torch.parallel import mesh as mesh_lib
+    from mvc_tpu_torch.training import optimizer as opt_lib
+    from mvc_tpu_torch.training.trainer import Trainer, _tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    mesh = make_global_mesh(*TPSP_SHAPE)
+    out = {"rank": rank, "coords": mesh.coords(), "started": time.time() - t_spawn}
+    shard, n_shards = mesh.data_shard()
+    data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    data.metadata = data.metadata[:TPSP_ROWS]
+    batches = list(DataLoader(data, batch_size=TRAIN_B, shuffle=False, prefetch=0,
+                              process_index=shard, process_count=n_shards))
+    cfg = TrainerConfig(batch_size=TRAIN_B)
+    model, init = transformer_model(device)
+    init = spread_generator(init)
+    out["n_params"] = sum(x.numel() for _, x in named_leaves(init))
+
+    def clone(tree):
+        return _tree_map(lambda t: t.detach().clone(), tree)
+
+    def start(m, capture=True):
+        """(trainer, step, params, optimizer) on ``m`` (None: one process)."""
+        tr = Trainer("unused.ckpt", log_dir=None, mesh=m)
+        step, _ = tr._build_train_step(model, cfg)
+        params = clone(init) if m is None else shard_params(m, clone(init))
+        opt = opt_lib.make_optimizer(cfg, params)
+        if capture:
+            opt = WholeGradCapture(opt, params, m)
+        return tr, step, params, opt
+
+    # (a) three steps, the last batch padded; rank 0 takes each alone from
+    # the parameters the mesh starts it from
+    out["rows"] = [int(b["sample_mask"].sum()) for b in batches]
+    out["T"] = [int(b["feat_mask"].shape[1]) for b in batches]
+    tr, step, params, opt = start(mesh)
+    if rank == 0:
+        alone = Trainer("unused.ckpt", log_dir=None)
+        one_step, _ = alone._build_train_step(model, cfg)
+        model64, _ = float64_transformer(device)
+        f64_step, _ = alone._build_train_step(model64, cfg)
+    res = {"loss_rel": [], "checks": [], "same": [], "step_ms": []}
+    for host in batches:
+        b = tr._put_batch(host, device)
+        b.pop("_n_real")
+        b = tr._agree_lengths(b)
+        whole = gather_params(mesh, params, V)          # a collective: every rank takes part
+        before = clone(whole) if rank == 0 else None
+        del whole
+        sync(device)
+        t0 = time.perf_counter()
+        params, metrics = step(params, opt, b, None)
+        sync(device)
+        res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        digests = [None] * world
+        dist.all_gather_object(digests, (mesh.coords(), leaf_digests(params, mesh)))
+        res["same"].append(len({d[1][0] for d in digests}) == 1
+                           and all(d[1][1] == e[1][1] for d in digests for e in digests
+                                   if d[0][1] == e[0][1]))
+        if rank == 0:
+            u = alone._put_batch(host, device)
+            u.pop("_n_real")
+            u64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                   for k, v in u.items()}
+            refs = {}
+            for key, st, p, ub in (("f32", one_step, clone(before), u),
+                                   ("f64", f64_step, to_device(before, device, torch.float64),
+                                    u64)):
+                cap = GradOnly(p)
+                _, m = st(p, cap, ub, None)
+                refs[key] = (float(m[0]), cap.grads)
+            res["loss_rel"].append(abs(float(metrics[0]) - refs["f32"][0]) / abs(refs["f32"][0]))
+            res["checks"].append(grads_three_way(opt.grads, refs["f32"][1], refs["f64"][1]))
+            del before, refs
+    out["a"] = res
+    sharded = mesh_lib.sharded_leaves(mesh, params)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.leaves]
+    buckets = {"replicated, all 4 ranks": ([g for g, s in zip(grads, sharded) if not s],
+                                           mesh.group),
+               "embedding slice, dp x sp ranks": ([g for g, s in zip(grads, sharded) if s],
+                                                  mesh.groups["dp_sp"])}
+    out["buckets"] = {}
+    for name, (gs, group) in buckets.items():
+        mesh_lib.sum_over_ranks(gs, group)
+        ms = device_ms(lambda: mesh_lib.sum_over_ranks(gs, group), 3, device)
+        out["buckets"][name] = (sum(g.numel() for g in gs), ms)
+    del params, opt, grads, buckets
+    if rank == 0:
+        del model64
+
+    # (c) the step at bench.py's T=28, L=8 (median of 5 after 2), then one
+    # more on the mesh with every all-reduce counted
+    rng = np.random.default_rng(11)
+    items = [{"audio": rng.standard_normal((28, 128), dtype=np.float32),
+              "visual": rng.standard_normal((28, 2048), dtype=np.float32),
+              "caption": np.concatenate([[1], rng.integers(4, V, 6), [2]]).astype(np.int32)}
+             for _ in range(TRAIN_B)]
+    host28 = collate_av_batch(items, frame_buckets=(28,), caption_buckets=(8,))
+
+    def step28(m):
+        tr_, step_, params_, opt_ = start(m, capture=False)
+        b = tr_._put_batch(host28, device)
+        b.pop("_n_real")
+        times = []
+        for _ in range(7):
+            sync(device)
+            t0 = time.perf_counter()
+            params_, _m = step_(params_, opt_, b, None)
+            sync(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times[2:])), (step_, params_, opt_, b)
+
+    out["step28_ms"], (step_, params_, opt_, b28) = step28(mesh)
+    calls = []
+    real = dist.all_reduce
+
+    def counted(tensor, *a, **k):
+        calls.append(tensor.numel() * tensor.element_size())
+        return real(tensor, *a, **k)
+
+    dist.all_reduce = counted
+    try:
+        step_(params_, opt_, b28, None)
+    finally:
+        dist.all_reduce = real
+    out["collectives"] = (len(calls), sum(calls), sorted(calls, reverse=True)[:6])
+    del params_, opt_, b28
+    if rank == 0:       # the baseline in the same run; the others wait in (b)'s first collective
+        out["step28_alone_ms"] = step28(None)[0]
+
+    # (b) a 1-epoch fit on the mesh, its evals over the gathered parameters
+    fit_data = VideoCaptioningDataset(ds, "MSVD", "train", vocab_path=vocab_path, verbose=False)
+    fit_data.metadata = fit_data.metadata[:TPSP_FIT_ROWS]
+    val = VideoCaptioningDataset(ds, "MSVD", "val", vocab_path=vocab_path, verbose=False)
+    loaders = [DataLoader(d, batch_size=TRAIN_B, shuffle=False, prefetch=0,
+                          process_index=shard, process_count=n_shards) for d in (fit_data, val)]
+    tr = smoke_trainer(os.path.join(TRAIN_ROOT, "tpsp_transformer", f"rank{rank}", "fit.ckpt"),
+                       mesh=mesh)
+    cfg1 = TrainerConfig(batch_size=TRAIN_B, epochs=1)
+    t0 = time.perf_counter()
+    params, _, hist = tr.fit(model, init, loaders[0], loaders[1], loaders[1], cfg1)
+    sync(device)
+    out["fit_s"] = time.perf_counter() - t0
+    out["eval_s"] = tr.eval_s
+    out["history"] = hist
+    caps = tr.generated["val", 1]
+    out["n_captions"] = len(caps)
+    if rank == 0:
+        vc = video_dataset_to_video_captions_loader(val, batch_size=TRAIN_B)
+        alone = Trainer("unused.ckpt", log_dir=None)
+        alone.set_vocab(data.vocab)
+        alone._transfer_dtype = tr._transfer_dtype       # the fit's wire: bf16 features
+        _, _, want = alone.eval(model, params, vc, "val", 1, get_scores=False,
+                                max_caption_len=cfg1.eval_max_caption_len)
+        equal = total = 0
+        for v, c in want.items():
+            k, p = caps[v][0].split() + ["<EOS>"], c[0].split() + ["<EOS>"]
+            equal += sum(x == y for x, y in zip(k, p))
+            total += max(len(k), len(p))
+        out["tokens"] = (equal, total)
+        out["eval_equal"] = sum(caps.get(v) == c for v, c in want.items())
+        out["eval_total"] = len(want)
+        out["eval_order"] = list(caps) == list(want)
+        out["eval_differ"] = [(v, caps.get(v), c) for v, c in want.items()
+                              if caps.get(v) != c][:3]
+    return out
+
+
+def transformer_tpsp_phase(card, ds, vocab_path, device):
+    """13: four spawned ranks on the one card over gloo, a (dp=1, tp=2,
+    sp=2) mesh, ``TransformerCaptioning`` at full width."""
+    from mvc_tpu_torch.parallel.smoke import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(transformer_tpsp_rank, int(np.prod(TPSP_SHAPE)),
+                        os.path.join(TRAIN_ROOT, "tpsp_transformer_rdzv"),
+                        args=(ds, vocab_path, str(device), time.time()), backend="gloo",
+                        device=str(device), timeout_s=400)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    a = r0["a"]
+    h = r0["history"]
+    checks = "; ".join(
+        f"step {i + 1}: {c['leaves']} leaves against one process, worst {c['worst'][1]:.3e} "
+        f"({c['worst'][0]}), median {c['median']:.3e} (1e-4); {c['unresolved']} leaves float32 "
+        f"does not resolve (one process over 1e-4 from float64), worst (mesh vs float64, one "
+        f"process vs float64) {c['worst_unresolved']} (1e-3); {c['zero'][0]} key biases / "
+        f"largest leaf {c['zero'][1]:.3e} (1e-7)" for i, c in enumerate(a["checks"]))
+    log(f"[{card}] [transformer tp/sp a] 4 ranks (dp, tp, sp) {[r['coords'] for r in ranks]} "
+        f"over gloo on {device}, TransformerCaptioning at full width, {r0['n_params']} params, "
+        f"V={V}: {secs:.2f} s with start-up; rows a step {r0['rows']} (T {r0['T']}); loss vs one "
+        f"process from the same parameters {[f'{x:.3e}' for x in a['loss_rel']]} (1e-4); "
+        f"gradients, gathered, relative in norm: {checks}; replicated parameters equal and "
+        f"slices consistent {[all(r['a']['same'][k] for r in ranks) for k in range(len(a['same']))]}"
+        "; step ms " + "; ".join(f"rank {r['rank']} {[round(x, 2) for x in r['a']['step_ms']]}"
+                                  for r in ranks))
+    n, nbytes, top = r0["collectives"]
+    log(f"[{card}] [transformer tp/sp c] step B={TRAIN_B} T=28 L=8 V={V} f32 over the 4 ranks "
+        f"(median of 5): " + ", ".join(f"rank {r['rank']} {r['step28_ms']:.2f} ms" for r in ranks)
+        + f"; one process alone on the same batch {r0['step28_alone_ms']:.2f} ms "
+        f"({max(r['step28_ms'] for r in ranks) / r0['step28_alone_ms']:.2f}x); all-reduces in one "
+        f"step on rank 0 {n}, {nbytes / 1e6:.1f} MB (largest {[round(x / 1e6, 2) for x in top]} "
+        "MB); gloo all-reduce of each gradient bucket on the card (median of 3, rank 0): "
+        + ", ".join(f"{k}: {m} f32 ({4 * m / 1e6:.1f} MB) {ms:.4f} ms"
+                    for k, (m, ms) in r0["buckets"].items())
+        + f"; ranks up and meshed {max(r['started'] for r in ranks):.2f} s after the spawn")
+    eq, tot = r0["tokens"]
+    log(f"[{card}] [transformer tp/sp b] 1-epoch fit over {TPSP_FIT_ROWS} train rows: train "
+        f"{h['train_loss'][0]} val {h['val_loss'][0]} CIDEr {h['val_score'][0]['CIDEr']:.6f}; "
+        f"{r0['fit_s']:.2f} s ({r0['eval_s']:.2f} s of evals on rank 0); gathered val captions "
+        f"against one process's decode of the same params: tokens, EOS included, {eq}/{tot} "
+        f"({100 * eq / tot:.2f} %), captions {r0['eval_equal']}/{r0['eval_total']} (order "
+        f"{r0['eval_order']}); differing (video, gathered, one process): {r0['eval_differ']}")
+    ok = (max(a["loss_rel"]) <= 1e-4 and all(c["ok"] for c in a["checks"])
+          and all(all(r["a"]["same"]) for r in ranks)
+          and all(r["history"] == h for r in ranks)
+          and r0["eval_total"] == r0["n_captions"] and r0["eval_order"] and eq >= 0.99 * tot
+          and np.isfinite(h["train_loss"][0]["total"]))
+    if not ok:
+        raise SystemExit("the transformer's tp/sp steps, fit or eval disagree with one process")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3360,6 +3662,11 @@ def main() -> int:
     p11["dual_greedy_decode"]["tp/sp fit eval, 4 gloo ranks (1, 2, 2) on one card"] = \
         tpsp_phase(card, ds, vocab_path, device)
     log(f"[{card}] phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. the transformer on the tp/sp mesh, on the same tree
+    t0 = time.perf_counter()
+    transformer_tpsp_phase(card, ds, vocab_path, device)
+    log(f"[{card}] phase 13: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
     record = {"kernels": [

@@ -33,7 +33,9 @@ each process joins the process group first (``parallel/distributed.py``:
 NCCL with one card per rank, gloo with ``--device cpu``), trains on its
 card over its strided share of the data and all-reduces its gradients;
 rank 0 writes the checkpoints and the history.  ``--tp``/``--sp`` above 1
-raise ``NotImplementedError``: they are not ported yet.
+make a (dp, tp, sp) mesh of one process a shard, for either model: each
+rank holds its vocab slices of the parameters (JAX's layout) and its
+block of the frames when sp divides the batch's T.
 """
 
 from __future__ import annotations
@@ -124,9 +126,6 @@ def parse_args(argv=None):
 def main(argv=None):
     """Runs the selected experiments; returns their histories in order."""
     args = parse_args(argv)
-    if args.model == "transformer" and args.tp * args.sp > 1:
-        raise NotImplementedError("--model transformer with --tp or --sp above 1 is not ported "
-                                  "(ROADMAP.md §1)")
 
     import torch
 

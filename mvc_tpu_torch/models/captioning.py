@@ -172,6 +172,8 @@ class AVCaptioning:
 
     # forward takes ``shards=``: trains on a tp/sp mesh (parallel/collectives.py)
     shardable = True
+    # its log-probs are this rank's vocab slice under tp
+    vocab_sharded_logits = True
 
     def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
                  reconstructor_type: str = "none",
@@ -323,6 +325,8 @@ class AVCaptioningDual:
 
     # forward takes ``shards=``: trains on a tp/sp mesh (parallel/collectives.py)
     shardable = True
+    # its log-probs are this rank's vocab slice under tp
+    vocab_sharded_logits = True
 
     def __init__(self, vocab_size: int, teacher_forcing_ratio: float = 0.0,
                  reconstructor_type: str = "none",

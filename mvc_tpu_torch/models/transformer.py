@@ -21,6 +21,17 @@ Parameters are a dict tree with the JAX layout: ``embedding.table``,
 ``visual_in`` / ``audio_in`` / ``generator`` linears (``w`` is [in, out]),
 ``ln_v`` / ``ln_a``, and the lists ``v_encoder``, ``a_encoder``,
 ``v_decoder``, ``a_decoder`` of per-layer trees.
+
+``forward`` takes ``shards`` (``parallel/collectives.Shards``) and so
+trains on a (dp, tp, sp) mesh with the JAX package's layout
+(``parallel/mesh.param_specs``): over tp only ``embedding.table`` is
+sliced, so the caption lookup sums over tp and the generator's logits and
+log-softmax stay whole on every rank; over sp each rank encodes its own
+block of the frames, at its offset into the positional encoding, with
+self-attention keys and values over every frame (``gather_frames``), and
+the memories are gathered once for the decoder's cross-attention.  Each
+softmax then spans all the global frames with the ``-1e9`` fill, so a row
+with no real frame attends uniformly, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from mvc_tpu_torch.models.captioning import captions_from_tokens
 from mvc_tpu_torch.models.decoder import cast_params_for_decode
 from mvc_tpu_torch.models.initializers import embedding_params, linear_params
 from mvc_tpu_torch.ops import sharded
+from mvc_tpu_torch.parallel import collectives
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -123,9 +135,10 @@ def _encoder_layer_init(gen, cfg: TransformerConfig, device):
             "ffn": _ffn_init(gen, cfg.d_model, cfg.d_ff, device)}
 
 
-def _encoder_layer(p, x, cfg: TransformerConfig, mask):
+def _encoder_layer(p, x, cfg: TransformerConfig, mask, shards=None):
+    """x: this rank's frames; the keys and values span every frame."""
     h = _layernorm(p["ln1"], x)
-    x = x + _mha(p["attn"], h, h, cfg.num_heads, mask)
+    x = x + _mha(p["attn"], h, collectives.gather_frames(h, shards), cfg.num_heads, mask)
     return x + _ffn(p["ffn"], _layernorm(p["ln2"], x))
 
 
@@ -175,6 +188,11 @@ class TransformerCaptioning:
     entry points run: the card by default, ``device="cpu"`` for the CPU."""
 
     reconstructor_type = "none"
+    # forward takes ``shards=``: trains on a tp/sp mesh (parallel/collectives.py)
+    shardable = True
+    # its log-probs hold the whole vocab on every tp rank (only the
+    # embedding is sliced), so the loss takes no tp group
+    vocab_sharded_logits = False
 
     def __init__(self, vocab_size: int, config: Optional[TransformerConfig] = None,
                  teacher_forcing_ratio: float = 1.0, dtype=torch.float32, device="cuda"):
@@ -214,18 +232,25 @@ class TransformerCaptioning:
         return params
 
     # ------------------------------------------------------------ encode
-    def _encode(self, params, audio, visual, feat_mask):
-        T = visual.shape[1]
+    def _encode(self, params, audio, visual, feat_mask, shards=None):
+        """(audio memory, visual memory, key mask over every frame): the
+        memories of this rank's frames, at their offset into the global
+        positional encoding when the frames are split over sp."""
+        t = visual.shape[1]
+        T = t if shards is None else shards.global_frames(t)
         if T > self.cfg.max_len:
             raise ValueError(f"a clip of T={T} frames is longer than the positional "
                              f"encoding's {self.cfg.max_len}")
-        pe = self._pe_on(visual.device)
-        v = _proj(params["visual_in"], visual.to(self.dtype)) + pe[:T]
-        a = _proj(params["audio_in"], audio.to(self.dtype)) + pe[:T]
+        lo = shards.sp_index * t if collectives.frames_split(shards) else 0
+        pe = self._pe_on(visual.device)[lo:lo + t]
+        v = _proj(params["visual_in"], visual.to(self.dtype)) + pe
+        a = _proj(params["audio_in"], audio.to(self.dtype)) + pe
+        if feat_mask is not None and collectives.frames_split(shards):
+            feat_mask = collectives.gather_frames(feat_mask.float(), shards).bool()
         enc_mask = feat_mask[:, None, None, :] if feat_mask is not None else None
         for vl, al in zip(params["v_encoder"], params["a_encoder"]):
-            v = _encoder_layer(vl, v, self.cfg, enc_mask)
-            a = _encoder_layer(al, a, self.cfg, enc_mask)
+            v = _encoder_layer(vl, v, self.cfg, enc_mask, shards)
+            a = _encoder_layer(al, a, self.cfg, enc_mask, shards)
         return a, v, enc_mask
 
     def _fused_logp(self, params, xv, xa) -> torch.Tensor:
@@ -235,10 +260,13 @@ class TransformerCaptioning:
         a_logp = torch.log_softmax(_proj(g, _layernorm(params["ln_a"], xa)).float(), -1)
         return 0.5 * (v_logp + a_logp)
 
-    def _decode_logits(self, params, tokens, a_mem, v_mem, cross_mask) -> torch.Tensor:
-        """tokens: [B, L] -> fused log-probs [B, L, V] over the full prefix."""
+    def _decode_logits(self, params, tokens, a_mem, v_mem, cross_mask,
+                       shards=None) -> torch.Tensor:
+        """tokens: [B, L] -> fused log-probs [B, L, V] over the full prefix;
+        the embedding table may be a tp slice."""
         L = tokens.shape[1]
-        x = params["embedding"]["table"][tokens.long()].to(self.dtype) + self._pe[:L]
+        x = (collectives.embed(params["embedding"]["table"], tokens.long(), shards).to(self.dtype)
+             + self._pe[:L])
         causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))[None, None]
         xv, xa = x, x
         for vl, al in zip(params["v_decoder"], params["a_decoder"]):
@@ -248,12 +276,16 @@ class TransformerCaptioning:
 
     # ------------------------------------------------------------ api
     def forward(self, params, audio, visual, captions, gen=None, teacher_forcing_ratio=None,
-                feat_mask=None):
+                feat_mask=None, shards=None):
         """captions: [L, B] -> (outputs [L, B, V] log-probs with row 0
-        zeroed, None, None)."""
+        zeroed, None, None); with ``shards`` the features and ``feat_mask``
+        may be this rank's block of the frames, and the log-probs are
+        whole."""
         del gen, teacher_forcing_ratio
-        a_mem, v_mem, cross_mask = self._encode(params, audio, visual, feat_mask)
-        logp = self._decode_logits(params, captions.t()[:, :-1], a_mem, v_mem, cross_mask)
+        a_mem, v_mem, cross_mask = self._encode(params, audio, visual, feat_mask, shards)
+        a_mem, v_mem = (collectives.gather_frames(m, shards) for m in (a_mem, v_mem))
+        logp = self._decode_logits(params, captions.t()[:, :-1], a_mem, v_mem, cross_mask,
+                                   shards)
         out = logp.transpose(0, 1)                      # position t predicts token t+1
         zeros = torch.zeros((1,) + tuple(out.shape[1:]), dtype=out.dtype, device=out.device)
         return torch.cat([zeros, out], dim=0), None, None

@@ -1,9 +1,10 @@
 """The collectives of tensor and sequence parallelism, written by hand.
 
 In the JAX package GSPMD inserts them: ``mvc_tpu/parallel/mesh.py`` shards
-the vocab axis of each decoder's embedding table, ``out.w`` and ``out.b``
-over ``tp`` and the frame axis T of the features and the frame mask over
-``sp``, and XLA reduces across the shards where the math needs it.  Here
+the vocab axis of each RNN decoder's embedding table, ``out.w`` and
+``out.b`` (of the transformer, only ``embedding.table``) over ``tp`` and
+the frame axis T of the features and the frame mask over ``sp``, and XLA
+reduces across the shards where the math needs it.  Here
 each reduction is a call below, taken with a ``Shards`` that says where
 this rank stands; with ``shards=None`` (or an axis of one) every function
 is the single-process expression it replaces, unchanged.
@@ -179,6 +180,21 @@ def frame_softmax(energies: torch.Tensor, mask: Optional[torch.Tensor],
     unnorm = torch.where(mask, torch.exp(e - m), torch.zeros_like(e))
     denom = _sum(unnorm.sum(dim=dim, keepdim=True), group)
     return unnorm / torch.clamp(denom, min=torch.finfo(energies.dtype).tiny)
+
+
+def gather_frames(x: torch.Tensor, shards: Optional[Shards], dim: int = 1) -> torch.Tensor:
+    """The whole frame axis (``dim``) from every sp rank's block: each rank
+    writes its block into zeros and the sp group sums them, which NCCL and
+    gloo both take for CUDA tensors (gloo gathers none).  Exact: every
+    element has one nonzero term.  Backward: the gradient summed over sp,
+    narrowed to this rank's block (``_sum``'s rule, through the pad)."""
+    group = _sp(shards)
+    if group is None:
+        return x
+    t = x.shape[dim]
+    lo = shards.sp_index * t
+    pad = [0, 0] * (x.ndim - 1 - dim) + [lo, (shards.sp - 1) * t - lo]
+    return _sum(torch.nn.functional.pad(x, pad), group)
 
 
 def frame_sum(x: torch.Tensor, shards: Optional[Shards]) -> torch.Tensor:

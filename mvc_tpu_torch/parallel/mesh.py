@@ -217,12 +217,19 @@ def _spec(path: str, leaf) -> tuple:
     return ()
 
 
-def _map_specs(fn, tree, prefix=""):
+def _map_specs(fn, tree, prefix="", in_list=False):
+    """``fn(spec, leaf)`` over every leaf.  As the JAX ``param_shardings``
+    walks only dicts, a list (the transformer's layers) takes one
+    replicated spec as a prefix: every leaf under it is ``()``, whatever
+    its path."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _map_specs(fn, v, f"{prefix}/{k}" if prefix else k) for k, v in tree.items()}
-    return fn(_spec(prefix, tree), tree)
+        return {k: _map_specs(fn, v, f"{prefix}/{k}" if prefix else k, in_list)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_specs(fn, v, prefix, True) for v in tree]
+    return fn(() if in_list else _spec(prefix, tree), tree)
 
 
 def param_specs(params):

@@ -31,15 +31,18 @@ videos through the kernels, gathers the captions and scores them on rank
 choice agree; checkpoints and TensorBoard are rank 0's.
 
 On a tp/sp mesh (one process a shard, models whose ``shardable`` is True:
-the RNN captioners) the loaders of one dp index read the same rows, ``fit``
-keeps each rank's vocab slices of the parameters (``mesh.shard_params``)
-and each step this rank's block of the frames (``mesh.split_frames``); the
-model and the loss reduce across the shards (``parallel/collectives.py``),
-each rank backpropagates its share of the global loss, and each gradient
-leaf is summed over the ranks that hold the same slice of it
-(``mesh.sum_gradients``: replicated leaves over every rank, vocab slices
-over dp·sp).  The fused loss stays off under tp, as in the JAX trainer.  The
-evals gather the slices once and decode with the whole parameters;
+the RNN captioners and the transformer) the loaders of one dp index read
+the same rows, ``fit`` keeps each rank's vocab slices of the parameters
+(``mesh.shard_params``) and each step this rank's block of the frames
+(``mesh.split_frames``); the model and the loss reduce across the shards
+(``parallel/collectives.py``), each rank backpropagates its share of the
+global loss, and each gradient leaf is summed over the ranks that hold the
+same slice of it (``mesh.sum_gradients``: replicated leaves over every
+rank, vocab slices over dp·sp).  A model whose log-probs hold the whole
+vocab (``vocab_sharded_logits`` False: the transformer, whose only slice
+is the embedding) gives the loss no tp group; its terms still count
+tp·sp copies.  The fused loss stays off under tp, as in the JAX trainer.
+The evals gather the slices once and decode with the whole parameters;
 checkpoints hold them whole, with whole Adam moments, so any mesh (or the
 JAX package) loads them.
 """
@@ -47,6 +50,7 @@ JAX package) loads them.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import inspect
 import os
 import queue
@@ -162,13 +166,15 @@ class Trainer:
             return _tree_map(lambda p: p.to(compute) if p.dtype == torch.float32 else p, params)
 
         def compute_loss(params, batch, gen, tf_ratio):
-            shards = None
+            shards = loss_shards = None
             if self._tp_sp:
                 batch, split = mesh_lib.split_frames(self.mesh, batch)
-                shards = self.mesh.shards(model.vocab_size, split)
+                shards = loss_shards = self.mesh.shards(model.vocab_size, split)
+                if not model.vocab_sharded_logits:      # whole log-probs: no vocab slice
+                    loss_shards = dataclasses.replace(shards, tp_group=None)
             kw = {} if shards is None else {"shards": shards}
             feat_mask = batch["feat_mask"] if mask_feats else None
-            counts = self._global_counts(batch, feat_mask, shards)
+            counts = self._global_counts(batch, feat_mask, loss_shards)
             sample_mask = batch.get("sample_mask")
             p = cast_params(params)
             captions = batch["captions"]
@@ -455,10 +461,8 @@ class Trainer:
             raise ValueError(f"the model is on {model.device}, this rank's mesh device is "
                              f"{self.mesh.device}")
         if self._tp_sp and not getattr(model, "shardable", False):
-            raise NotImplementedError(
-                f"{type(model).__name__} on a tp or sp mesh is not ported: its FFN "
-                "projections and the encoder's attention over sharded frames need "
-                "collectives of their own (ROADMAP.md §1)")
+            raise NotImplementedError(f"{type(model).__name__}.forward takes no shards=: it "
+                                      "cannot train on a tp or sp mesh")
 
         params, ckpt = self._load(params)
         # the leaves the optimizer trains in place

@@ -618,21 +618,3 @@ def test_train_cli_over_two_cpu_ranks_equals_one_process(cli_one_process, synthe
     _close_history(h0, cli_one_process)
     assert h0["val_score"] == cli_one_process["val_score"]
 
-
-def test_the_transformer_on_a_tp_or_sp_mesh_raises():
-    """The transformer family is not ported to tp/sp (ROADMAP.md §1): its
-    fit raises before any collective; the CLI refuses it first."""
-    from mvc_tpu_torch.cli.train import main
-    from mvc_tpu_torch.models import TransformerCaptioning
-    from mvc_tpu_torch.training.trainer import Trainer
-
-    for shape in ({"dp": 1, "tp": 2}, {"dp": 1, "tp": 1, "sp": 2}):
-        mesh = tmesh.Mesh(shape, [CPU], rank=0, world_size=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer("x.ckpt", log_dir=None, mesh=mesh).fit(
-                TransformerCaptioning(vocab_size=V, device="cpu"), None,
-                SimpleNamespace(dataset=SimpleNamespace(vocab=None)), None, None,
-                TrainerConfig())
-    for flag in ("--tp", "--sp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--device", "cpu", "--model", "transformer", flag, "2"])

@@ -592,14 +592,12 @@ def test_fit_end_to_end_then_resume(synthetic_msvd, tmp_path):
 
 
 def test_fit_refuses_what_is_not_ported(tmp_path):
-    """What is not ported raises NotImplementedError: the transformer family
-    on a tp or sp mesh (the CLI's ``--model transformer --tp/--sp``; the
-    trainer's check is in ``tests/test_torch_tensor_parallel.py``); the
-    data-parallel, tensor- and sequence-parallel meshes, the feature cache,
-    int8 transfer and bf16 Adam state are ported.  A tp or sp mesh held by
-    one process (the trainer takes one process a shard), a --dp wider than
-    the devices at hand and a transfer dtype of neither package raise
-    ValueError."""
+    """Nothing of the JAX trainer is left unported: the data-parallel,
+    tensor- and sequence-parallel meshes (for the transformer too), the
+    feature cache, int8 transfer and bf16 Adam state.  A tp or sp mesh held
+    by one process (the trainer takes one process a shard), a --dp or a
+    ``--model transformer --tp/--sp`` wider than the devices at hand and a
+    transfer dtype of neither package raise ValueError."""
     from mvc_tpu_torch.cli.train import main
     from mvc_tpu_torch.parallel import make_mesh
     from mvc_tpu_torch.training.trainer import Trainer
@@ -610,7 +608,7 @@ def test_fit_refuses_what_is_not_ported(tmp_path):
                     mesh=make_mesh(devices=["cpu"] * 2, **kw))
     Trainer(str(tmp_path / "x.ckpt"), log_dir=None, mesh=make_mesh(devices=["cpu"] * 2))
     for extra in (["--tp", "2"], ["--sp", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=r"not divisible by tp\*sp=2"):
             main(["--device", "cpu", "--model", "transformer"] + extra)
     with pytest.raises(ValueError, match="needs more than 1 devices"):
         main(["--device", "cpu", "--dp", "2", "--data_root", str(tmp_path)])
