@@ -135,6 +135,13 @@ its own failure:
    1-epoch ``Trainer.fit`` on the mesh with a direct eval over the gathered
    parameters, its gathered val captions equal to one process's decode of
    the same params on >= 99 % of the tokens
+14. the benchmark entry points, in this process: ``cli.bench`` with its
+   five metrics at their full shapes and counts (bf16 beam, single greedy
+   and dual greedy at B=1024 through the kernels, the bf16-compute train
+   step, extraction of 16 clips of 10 s), then ``cli.bench_serving`` in
+   direct and beam mode at reduced counts (``SERVING_ARGS``); their JSON
+   lines printed as they come, each naming the card, every metric correct
+   with no share above 100 %, every serving request completed
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -155,11 +162,13 @@ import urllib.request
 import numpy as np
 import torch
 
+from mvc_tpu_torch.cli.bench import spread_bias
+from mvc_tpu_torch.utils.roofline import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS, bounds,
+                                          decode_work, model_flops, trace_busy, train_step_work,
+                                          transformer_work, tree_bytes)
+
 V, B, T, L = 4000, 64, 16, 30
 W = 5                        # beam width of the beam phases
-PEAK_F32_FLOPS = 67e12       # H100 SXM float32, outside the tensor cores
-PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BUCKETS = (8, 16, 32, 48, 64)
 
 
@@ -201,57 +210,6 @@ def decode_inputs(seed, device, b=B, t=T):
     mask[::3, (2 * t) // 3:] = False  # padded frames
     mask[-1] = False                  # an all-masked (batch padding) row
     return vf, af, mask.to(device)
-
-
-def spread_bias(decoders, seed, scale=2e-3, eos_bias=0.0):
-    """Spread the vocab biases (a seeded permutation x scale) so the argmax
-    and top-W decisions stay clear of near-ties; tokens still vary row to
-    row.  ``eos_bias`` lifts EOS above every other bias by that much."""
-    from mvc_tpu_torch.config import EOS_ID
-
-    g = torch.Generator().manual_seed(seed)
-    perm = torch.randperm(decoders[0]["out"]["b"].shape[0], generator=g).float() * scale
-    if eos_bias:
-        perm[EOS_ID] = perm.max() + eos_bias
-    out = []
-    for p in decoders:
-        p = {k: dict(v) for k, v in p.items()}
-        p["out"]["b"] = p["out"]["b"] + perm.to(p["out"]["b"].device)
-        out.append(p)
-    return out
-
-
-def decode_work(decoders, feat_dims, row_steps, out_elems, weight_bytes, b=B, t=T):
-    """FLOPs and bytes of one decode call: the keys/P matmuls outside the
-    kernel, then per (row, step) the query, energies, context or P-sum,
-    gates and vocab projection of each decoder.  Bytes: each input read
-    once, the tokens written once."""
-    from mvc_tpu_torch.ops._decode_common import _use_factored
-
-    flops_pre = flops_kernel = 0
-    nbytes = b * t * 4 + out_elems * 4
-    for p, F in zip(decoders, feat_dims):
-        E = p["embedding"]["table"].shape[1]
-        H, GH = p["rnn"]["wh"].shape
-        A = p["attention"]["W"].shape[1]
-        fac = _use_factored(b * t, F, GH)
-        flops_pre += 2 * b * t * F * A + (2 * b * t * F * GH if fac else 0)
-        kx = E if fac else E + F
-        per = (2 * H * A + 2 * t * A + 2 * t * (GH if fac else F)
-               + 2 * kx * GH + 2 * H * GH + 2 * H * V)
-        flops_kernel += row_steps * per
-        nbytes += b * t * F * 4 + sum(x.numel() for sub in p.values() for x in sub.values()) * weight_bytes
-    return flops_pre, flops_kernel, nbytes
-
-
-def bounds(flops_pre, flops_kernel, nbytes, peak_flops=PEAK_F32_FLOPS):
-    """(whole call ms, kernel alone ms, bound_by) at the card's peaks:
-    float32 products at the float32 rate, bf16 ones (bf16 operands, float32
-    sums) at the bf16 tensor-core rate."""
-    whole = max((flops_pre + flops_kernel) / peak_flops, nbytes / PEAK_BYTES) * 1e3
-    kernel = max(flops_kernel / peak_flops, nbytes / PEAK_BYTES) * 1e3
-    by = "operations" if (flops_pre + flops_kernel) / peak_flops >= nbytes / PEAK_BYTES else "bytes"
-    return whole, kernel, by
 
 
 def largest_t(lib_fn, args, limit):
@@ -936,38 +894,6 @@ def fit_phase(card, cfg, ds, vocab_path, split, label, counter, plain_fn, least,
     return launches, tr, opt
 
 
-def train_step_work(model, params, b, t, l):
-    """(FLOPs, bytes, parameter count) of one fused-loss train step at
-    [B, T] features and L caption tokens.  FLOPs: 3x the forward's
-    products (each GEMM's two backward GEMMs), the forward being per
-    decoder the attention keys, the hoisted embedding rows of wi, per step
-    the query, energies, context (or P-sum), context rows of wi (or P's
-    build once) and wh, and the vocab projection; per global reconstructor
-    the hoisted input GEMM and the recurrence.  Bytes: the batch, then the
-    params, grads and three moment trees read once and params and moments
-    written once."""
-    from mvc_tpu_torch.models.decoder import _train_factored
-    from mvc_tpu_torch.training.optimizer import tree_leaves
-
-    steps, fwd = l - 1, 0
-    for c in (model.v_config, model.a_config):
-        F, E, H, A, Vc = (c.in_feature_size, c.embedding_size, c.rnn_hidden_size, c.attn_size,
-                          c.output_size)
-        GH = 4 * H
-        fwd += 2 * b * t * F * A + 2 * steps * b * E * GH + 2 * steps * b * H * Vc
-        fwd += steps * (2 * b * H * A + 2 * b * t * A + 2 * b * H * GH)
-        if _train_factored(b, t, F, GH, l):
-            fwd += 2 * b * t * F * GH + steps * 2 * b * t * GH
-        else:
-            fwd += steps * (2 * b * t * F + 2 * b * F * GH)
-    for rc in (model.v_rec_config, model.a_rec_config):
-        fr, d = rc.hidden_size, 2 * rc.decoder_size
-        fwd += 2 * steps * b * d * 4 * fr + 2 * steps * b * fr * 4 * fr
-    n = sum(p.numel() for p in tree_leaves(params))
-    nbytes = 4 * n * (5 + 4) + b * t * (2048 + 128) * 2 + b * t + l * b * 4
-    return 3 * fwd, nbytes, n
-
-
 def host_data_times(card, ds, vocab_path, device):
     """The fit's host side alone, over one epoch of the train split: the
     loader (npy loads and collation on its prefetch thread), then the
@@ -1134,22 +1060,15 @@ def trace_summary(card, path, label):
     """What a ``torch.profiler`` Chrome trace of a train loop shows: its
     span, the card's busy time (kernels, copies and memsets, summed) and
     busy share, and the kernels that took most of it."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    span = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    busy = sum(e["dur"] for e in device) / 1e3
-    by_name = {}
-    for e in device:
-        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    span, busy, n_device, by_name = trace_busy(path)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     size = f"torch.profiler trace ({os.path.getsize(path) / 1e6:.1f} MB)"
-    if not device:
+    if busy is None:
         log(f"[{card}] [{label}] {size}: span {span:.2f} ms, no device activity in the trace "
             "(the profiler saw no CUDA events): card busy share not measured")
         return
     log(f"[{card}] [{label}] {size}: span {span:.2f} ms, card busy {busy:.2f} ms "
-        f"({100 * busy / span:.2f} %) in {len(device)} kernels and copies; top: "
+        f"({100 * busy / span:.2f} %) in {n_device} kernels and copies; top: "
         + "; ".join(f"{n} {ms:.2f} ms" for n, ms in top))
 
 
@@ -1296,25 +1215,6 @@ def decoded_clip(i, size=None):
     wav = (0.2 * np.sin(2 * np.pi * rng.uniform(200, 2000) * t)
            + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
     return frames, wav
-
-
-def meta_tree(tree):
-    if isinstance(tree, dict):
-        return {k: meta_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [meta_tree(v) for v in tree]
-    return None if tree is None else torch.empty(tree.shape, device="meta")
-
-
-def model_flops(fn, params, shape):
-    """2 x multiply-adds of one input of ``shape`` through ``fn``, counted
-    by ``FlopCounterMode`` from the tree's own conv and matmul shapes
-    (shape-only tensors: nothing runs)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as fc:
-        fn(meta_tree(params), torch.empty((1, *shape), device="meta"))
-    return fc.get_total_flops()
 
 
 def rel_in_norm(got, want):
@@ -1743,34 +1643,6 @@ def to_device(tree, device, dtype=None):
     return from_numpy_tree(tree, device, dtype)
 
 
-def tree_bytes(tree):
-    from mvc_tpu_torch.training.optimizer import tree_leaves
-
-    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
-
-
-def transformer_work(model, params, b, t, row_steps):
-    """(FLOPs, bytes) of one transformer decode call.  FLOPs: both encoders
-    over the b*t frames (input projection, per layer the four projections,
-    attention over the t frames, the FFN), the cross K/V projected once,
-    then for each (rows, position) in ``row_steps`` both decoder stacks'
-    layer step (self q/k/v/o and cross q/o projections, the FFN, attention
-    over the positions decoded so far and the t frames) and the two
-    generator heads.  Bytes: every parameter, the features and the mask
-    read once, the tokens written once."""
-    cfg = model.cfg
-    D, dff, nl, bt = cfg.d_model, cfg.d_ff, cfg.num_layers, b * t
-    enc = 2 * bt * (cfg.visual_dim + cfg.audio_dim) * D
-    enc += 2 * nl * (2 * bt * (4 * D * D + 2 * D * dff) + 4 * b * t * t * D)
-    cross = 2 * nl * 2 * 2 * bt * D * D
-    steps = 0
-    for rows, pos in row_steps:
-        layer = 2 * (6 * D * D + 2 * D * dff) + 4 * ((pos + 1) + t) * D
-        steps += rows * (2 * nl * layer + 2 * 2 * D * cfg.vocab_size)
-    nbytes = tree_bytes(params) + bt * (cfg.visual_dim + cfg.audio_dim) * 4 + bt + b * (L + 2) * 4
-    return enc + cross + steps, nbytes
-
-
 def launches_per_call(fn):
     """(kernel launches the host issued, device operations the profiler
     saw) during one call of ``fn``, from ``torch.profiler``; None where it
@@ -1831,7 +1703,8 @@ def transformer_decode(card, device):
         host_launches, dev_ops = launches_per_call(lambda: model.predict_tokens(params, af, vf,
                                                                                 **kw))
         rows = B * (W if mode == "beam" else 1)
-        flops, nbytes = transformer_work(model, params, B, T, [(rows, p) for p in range(n_steps)])
+        flops, nbytes = transformer_work(model, params, B, T,
+                                         [(rows, p) for p in range(n_steps)], L)
         bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
         per_step = (f"{host_launches / n_steps:.1f}" if host_launches else "not measured")
         log(f"[{card}] [transformer a] {mode} ({n_params} parameters, "
@@ -3319,6 +3192,66 @@ def transformer_tpsp_phase(card, ds, vocab_path, device):
         raise SystemExit("the transformer's tp/sp steps, fit or eval disagree with one process")
 
 
+# -- 14. the benchmark entry points ------------------------------------------
+
+SERVING_ARGS = ["--concurrency", "1", "64", "--n", "256", "--n-open", "256", "--http-n", "5"]
+
+
+def bench_phase(card, device):
+    """14: ``cli.bench`` with all five metrics at its full shapes and counts,
+    then ``cli.bench_serving`` in direct and beam mode at reduced counts,
+    in this process; each kernel's count is set to 0 just before each run
+    and read just after.  Every line (printed by the CLIs themselves) must
+    name the card, every metric be correct with no share above 100 %, every
+    kernel launch once a timed call, and every serving request attempted
+    complete.  Returns {kernel: {path: launches}}."""
+    from mvc_tpu_torch.cli import bench, bench_serving
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import greedy as gr
+
+    name = torch.cuda.get_device_name(device)
+    wrappers = {"dual_greedy": dg.dual_greedy_decode, "beam": bm.beam_decode,
+                "greedy": gr.greedy_decode}
+    kernel_of = {"beam_captions_per_sec": "beam", "greedy_captions_per_sec": "greedy",
+                 "bulk_greedy_captions_per_sec": "dual_greedy"}
+    launches = {k: {} for k in wrappers}
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    line = bench.main([])
+    for k, w in wrappers.items():
+        launches[k]["cli.bench"] = w.launches
+    bench_s = time.perf_counter() - t0
+    metrics = line["metrics"]
+    bad = [m for m, e in metrics.items()
+           if not e["correct"] or max(e["mfu_pct"], e["hbm_pct"]) > 100.0]
+    bad += [m for m, k in kernel_of.items()
+            if metrics[m]["kernel_launches"] != metrics[m]["calls"]]
+    log(f"[{card}] [bench] cli.bench in {bench_s:.1f} s: " + "; ".join(
+        f"{m} {e['value']:.2f} {e['unit']} ({e['calls']} calls, correct {e['correct']}, MFU "
+        f"{e['mfu_pct']:.4f} %, HBM {e['hbm_pct']:.4f} % of the triad, {e['bound']})"
+        for m, e in metrics.items()) + f"; kernel launches {launches}")
+    if (line["device"]["name"] != name or line["device"]["platform"] != "gpu"
+            or set(metrics) != {n for n, _unit, _base in bench.METRICS.values()} or bad):
+        raise SystemExit(f"cli.bench: a metric is missing, wrong or not on the card: {bad}")
+    for mode, kernel in (("direct", "dual_greedy"), ("beam", "beam")):
+        t0 = time.perf_counter()
+        wrappers[kernel].launches = 0
+        lines = bench_serving.main(["--mode", mode] + SERVING_ARGS)
+        launches[kernel][f"cli.bench_serving --mode {mode}"] = wrappers[kernel].launches
+        phases = [e["phase"] for e in lines]
+        log(f"[{card}] [bench_serving {mode}] {len(lines)} lines {phases} in "
+            f"{time.perf_counter() - t0:.1f} s; {kernel} launches "
+            f"{wrappers[kernel].launches}")
+        if (any(e["device"]["name"] != name or e["completed"] != e["attempted"] or e["failed"]
+                for e in lines) or wrappers[kernel].launches < 1
+                or phases.count("closed_loop") != 3 or phases.count("open_loop") != 3):
+            raise SystemExit(f"cli.bench_serving --mode {mode}: a line is wrong or a request "
+                             "failed")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3524,7 +3457,7 @@ def main() -> int:
         lambda: dg.dual_greedy_decode(decoders, feats, mask, L, f32, cells),
         lambda: dg.dual_greedy_decode_reference(decoders, feats, mask, L, f32, cells),
         lambda: dg._launch(g_args, f32, device))
-    g_pre, g_kern, g_bytes = decode_work(decoders, (2048, 128), B * (L - 1), B * L, 4)
+    g_pre, g_kern, g_bytes = decode_work(decoders, (2048, 128), B * (L - 1), B * L, 4, b=B, t=T)
     g_bound, g_bound_k, g_by = bounds(g_pre, g_kern, g_bytes)
     log(f"[{card}] dual_greedy_decode (wrapper: keys/P matmuls + kernel) f32 B={B} T={T} "
         f"L={L} V={V}: {g_ms:.4f} ms")
@@ -3561,7 +3494,7 @@ def main() -> int:
     if not torch.equal(b_steps, steps_main):
         raise SystemExit("the timed beam launches ran another number of steps")
     row_steps = int(b_steps.sum()) * W
-    b_pre, b_kern, b_bytes = decode_work(decoders, (2048, 128), row_steps, B * (L + 2), 4)
+    b_pre, b_kern, b_bytes = decode_work(decoders, (2048, 128), row_steps, B * (L + 2), 4, b=B, t=T)
     b_bound, b_bound_k, b_by = bounds(b_pre, b_kern, b_bytes)
     log(f"beam steps per clip (kernel, timed input): min {int(b_steps.min())} max "
         f"{int(b_steps.max())} of {L + 1}; row-steps {row_steps}")
@@ -3583,7 +3516,7 @@ def main() -> int:
             lambda: gr.greedy_decode_reference(dec_, sf, mask, L, wd, "LSTM"),
             lambda: gr._launch(s_args, wd, device))
         nbytes_w = 4 if wd == f32 else 2
-        pre, kern, nbytes = decode_work([dec_], (2176,), B * (L - 1), B * L, nbytes_w)
+        pre, kern, nbytes = decode_work([dec_], (2176,), B * (L - 1), B * L, nbytes_w, b=B, t=T)
         bound, bound_k, by = bounds(pre, kern, nbytes, peak)
         s_times[wd] = (ms, plain, bound, by)
         peak_txt = "67 TFLOP/s f32" if wd == f32 else "989 TFLOP/s bf16"
@@ -3614,7 +3547,7 @@ def main() -> int:
     if not torch.equal(sb_steps, s_steps_main):
         raise SystemExit("the timed single-model beam launches ran another number of steps")
     row_steps = int(sb_steps.sum()) * W
-    pre, kern, nbytes = decode_work([s_dec], (2176,), row_steps, B * (L + 2), 4)
+    pre, kern, nbytes = decode_work([s_dec], (2176,), row_steps, B * (L + 2), 4, b=B, t=T)
     sb_bound, sb_bound_k, _ = bounds(pre, kern, nbytes)
     log(f"[{card}] beam_decode one decoder AVCaptioning F=2176 f32 B={B} W={W} T={T} "
         f"max_len={L} V={V} (steps max {int(sb_steps.max())}): wrapper {sb_ms:.4f} ms, "
@@ -3669,6 +3602,11 @@ def main() -> int:
     log(f"[{card}] phase 13: {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
 
+    # -- 14. the benchmark entry points
+    t0 = time.perf_counter()
+    p14 = bench_phase(card, device)
+    log(f"[{card}] phase 14: {time.perf_counter() - t0:.1f} s")
+
     record = {"kernels": [
         {"name": "dual_greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/dual_greedy.cu",
@@ -3681,7 +3619,7 @@ def main() -> int:
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("dual_greedy ")},
                               **p9["dual_greedy"], **p10["dual_greedy"],
-                              **p11["dual_greedy_decode"]}},
+                              **p11["dual_greedy_decode"], **p14["dual_greedy"]}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
@@ -3692,7 +3630,8 @@ def main() -> int:
                               "train fit beam eval": fit_launches["beam"],
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("beam ")},
-                              **p9["beam"], **p10["beam"], **p11["beam_decode"]}},
+                              **p9["beam"], **p10["beam"], **p11["beam_decode"],
+                              **p14["beam"]}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",
@@ -3702,7 +3641,7 @@ def main() -> int:
          "launches_by_path": {"serve single direct": s_launches,
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("greedy ")},
-                              **p9["greedy"], **p11["greedy_decode"]}},
+                              **p9["greedy"], **p11["greedy_decode"], **p14["greedy"]}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
