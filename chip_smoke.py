@@ -22,9 +22,7 @@ its own failure:
    seeded random weights, ``CaptionService(max_batch=64)`` behind
    ``make_http_server``, a few dozen requests through ``POST /caption`` and
    ``/caption_batch``, once in direct mode and once in beam mode; each
-   kernel's launch count is set to 0 just before its run and read just after.
-   Then one dual-direct clip above the kernel's largest T, posted with 8
-   short ones: one HTTP 400, 8 captions equal to the plain version's
+   kernel's launch count is set to 0 just before its run and read just after
 5. times with CUDA events (warm-up excluded): kernel, plain version, bound;
    the greedy kernels' shared memory against the Python replica of their
    layout, largest T, weight repack time and per-phase µs per step (f32
@@ -142,6 +140,17 @@ its own failure:
    direct and beam mode at reduced counts (``SERVING_ARGS``); their JSON
    lines printed as they come, each naming the card, every metric correct
    with no share above 100 %, every serving request completed
+15. any clip length and beams up to 16, at full width, each exactly the
+   plain version in float32: (a) the serving and bench shapes keep their
+   layouts (the greedy kernels' score rows in shared memory, the beam's
+   15-row tile);
+   (b) ``dual_greedy.cu`` at T=1024 and T=4096, ``greedy.cu`` at T=4096,
+   ``beam.cu`` (dual, W=5) at T=2048, B=8, with their score rows in the
+   global workspace; (c) ``beam.cu`` at W=9, 12 and 16 on the 16-row tile
+   (B=16, T=16), a beam of 17 refused; (d) a T=1024 dual-direct clip posted
+   over HTTP with 8 short ones (all captioned, as the plain version does)
+   and ``AVCaptioningDual.predict`` in both modes at T=1024; each case's
+   time beside the plain version's and its bound
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Exits non-zero with no record when no CUDA device is there.
@@ -212,13 +221,14 @@ def decode_inputs(seed, device, b=B, t=T):
     return vf, af, mask.to(device)
 
 
-def largest_t(lib_fn, args, limit):
-    """The largest T whose shared-memory need stays within the limit, on
-    the branch (factored or direct) each decoder of ``args`` takes."""
+def largest_t(smem_fn, ws_fn, args, limit=232448):
+    """The largest T a launch takes with everything in shared memory (a
+    block within ``limit`` bytes and no global workspace), on the branch
+    (factored or direct) each decoder of ``args`` takes."""
     t0, t_max = args.T, 0
-    while True:
+    while t_max < 1 << 16:
         args.T = t_max + 1
-        if lib_fn(ctypes.byref(args)) > limit:
+        if smem_fn(ctypes.byref(args)) > limit or ws_fn(ctypes.byref(args)):
             break
         t_max += 1
     args.T = t0
@@ -294,22 +304,28 @@ def beam_sass_against_pr5(build):
         f"{len(PR5_BEAM_SASS)} kernels identical ({len(here)} built)")
 
 
-def stream_layout(card, label, smem_fn, args, prep):
+def stream_layout(card, label, lib, args, prep):
     """The greedy kernel's shared-memory need against the Python replica of
-    its layout (ops/_decode_common.greedy_layout); fails if they differ."""
+    its layout (ops/_decode_common.greedy_layout); fails if they differ.
+    Returns the replica's layout."""
     from mvc_tpu_torch.ops import _decode_common as dc
 
+    smem_fn = getattr(lib, f"{label}_smem_bytes")
+    ws_fn = getattr(lib, f"{label}_workspace_floats")
     decs = [{k: p[k] for k in ("H", "A", "E", "F", "cell", "factored")} for p in prep]
     lay = dc.greedy_layout(decs, args.T, args.V)
-    got = smem_fn(ctypes.byref(args))
-    log(f"{label} shared memory per block at T={args.T}: {got} bytes (replica {lay['bytes']}), "
-        f"ring of {lay['stages']} stages of {dc.STAGE_BYTES} bytes; largest T at these widths: "
-        f"{largest_t(smem_fn, args, dc.MAX_SMEM_BYTES)}")
-    if got != lay["bytes"]:
+    got, ws = smem_fn(ctypes.byref(args)), ws_fn(ctypes.byref(args))
+    log(f"{label} shared memory per block at B={args.B} T={args.T}: {got} bytes (replica "
+        f"{lay['bytes']}), ring of {lay['stages']} stages of {dc.STAGE_BYTES} bytes, score rows "
+        f"in {'the global workspace' if lay['att_global'] else 'shared memory'} ({ws} "
+        f"workspace floats); largest T in shared memory at these widths: "
+        f"{largest_t(smem_fn, ws_fn, args, dc.MAX_SMEM_BYTES)}")
+    if got != lay["bytes"] or bool(ws) != lay["att_global"]:
         raise SystemExit(f"{label}: the kernel's layout and its Python replica disagree")
     nbytes = sum(sum(st) for *_, st in dc.stream_plan(decs, args.V, 4))
     log(f"[{card}] {label} weight stream per block and step (f32): {nbytes / 1e6:.3f} MB, "
         f"{nbytes * dc.CL * -(-args.B // dc.ROWS) / 1e6:.1f} MB over the grid")
+    return lay
 
 
 def check_greedy(name, kernel_fn, plain_fn, label, mask, exact):
@@ -464,58 +480,42 @@ def serve(model, params, vocab, device, mode, label="", transfer="f32", mesh=Non
     return singles + [it for b in batches for it in b], captions
 
 
-def serve_over_limit(model, params, vocab, device, plain_fn):
-    """One clip whose frame bucket exceeds the kernel's largest T, posted
-    together with 8 short clips: it alone gets HTTP 400 and the 8 get the
-    plain version's captions."""
+def serve_long_clip(model, params, vocab, device, plain_fn, t_long):
+    """One dual-direct clip of ``t_long`` frames, longer than the kernel
+    keeps in shared memory (the service refused such a clip before the
+    kernels took any length), posted with 8 short clips at once: every
+    request gets HTTP 200 and the plain version's caption.  Returns the
+    kernel's launches while the service runs."""
     from mvc_tpu_torch.data.dataset import _bucket
+    from mvc_tpu_torch.ops import dual_greedy as dg
     from mvc_tpu_torch.serving import CaptionService, ServiceConfig, make_http_server
 
     cfg = ServiceConfig(max_batch=64, mode="direct", frame_buckets=BUCKETS, max_caption_len=L,
                         max_wait_ms=200.0)
-    svc = CaptionService(model, params, vocab, cfg, device=device)
-    t_long = svc.max_frames + 1
     rng = np.random.default_rng(3)
-    shorts = [{"visual": rng.normal(size=(t, 2048)).astype(np.float32).round(3).tolist(),
+    bodies = [{"visual": rng.normal(size=(t, 2048)).astype(np.float32).round(3).tolist(),
                "audio": rng.normal(size=(t, 128)).astype(np.float32).round(3).tolist()}
-              for t in rng.integers(3, 41, size=8)]
-    bodies = shorts + [{"visual": np.zeros((t_long, 2048)).tolist(),
-                        "audio": np.zeros((t_long, 128)).tolist()}]
+              for t in list(rng.integers(3, 41, size=8)) + [t_long]]
+    dg.dual_greedy_decode.launches = 0
+    svc = CaptionService(model, params, vocab, cfg, device=device)
     server = make_http_server(svc, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
-    replies = [None] * len(bodies)
-
-    def post(i):
-        req = urllib.request.Request(base + "/caption", data=json.dumps(bodies[i]).encode(),
-                                     headers={"Content-Type": "application/json"})
-        try:
-            with urllib.request.urlopen(req, timeout=300) as r:
-                replies[i] = (r.status, json.loads(r.read()))
-        except urllib.error.HTTPError as e:
-            replies[i] = (e.code, None)
-        except Exception as e:               # reported below; the phase fails
-            replies[i] = (None, repr(e))
-
     try:
-        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
+        captions = post_all(f"http://127.0.0.1:{server.server_address[1]}", bodies)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
         svc.close()
-    codes = [c for c, _ in replies]
-    log(f"[over-limit] kernel's largest T {svc.max_frames}; a clip of T={t_long} (bucket "
-        f"{_bucket(t_long, BUCKETS)}) posted with 8 short ones: HTTP {codes}")
-    if codes != [200] * 8 + [400]:
-        raise SystemExit(f"the over-limit clip was not refused alone: {replies}")
-    check_served(plain_fn, shorts, [r["caption"] for _, r in replies[:8]], vocab, device,
-                 "over-limit batch-mates")
+    launches = dg.dual_greedy_decode.launches
+    log(f"[long clip] the service's frame limit {svc.max_frames}; a clip of T={t_long} (bucket "
+        f"{_bucket(t_long, BUCKETS)}) posted with 8 short ones: all answered; dual_greedy "
+        f"launches {launches}")
+    if launches < 2:
+        raise SystemExit("the long clip and its batch-mates did not run through the kernel")
+    check_served(plain_fn, bodies, captions, vocab, device, "long clip and its batch-mates", n=9)
+    return launches
 
 
 def wire_values(transfer):
@@ -601,10 +601,13 @@ def beam_tiles(bm, dc, card, decoders, feats, mask, cells, s_dec, sf, device):
             args = calls[rows, B][0]
             grid = -(-B // (rows // w))
             resident = lib.beam_max_active_clusters(ctypes.byref(args), 0, rows)
-            t_max = largest_t(lambda a, r=rows: lib.beam_smem_bytes(a, r), args,
+            t_max = largest_t(lambda a, r=rows: lib.beam_smem_bytes(a, r),
+                              lambda a, r=rows: lib.beam_workspace_floats(a, r), args,
                               dc.MAX_SMEM_BYTES)
             log(f"[{card}] beam {label} W={w} R={rows}: shared memory per block at T={T} "
-                f"{lib.beam_smem_bytes(ctypes.byref(args), rows)} bytes, largest T {t_max}, "
+                f"{lib.beam_smem_bytes(ctypes.byref(args), rows)} bytes, workspace "
+                f"{lib.beam_workspace_floats(ctypes.byref(args), rows)} floats, largest T in "
+                f"shared memory {t_max}, "
                 f"clusters in the grid at B={B} {grid}, resident {resident}, waves "
                 f"{-(-grid // max(resident, 1))}; kernel alone B={B} "
                 f"{float(np.mean(ms[rows, B])):.4f} ms, B=16 {float(np.mean(ms[rows, 16])):.4f} ms")
@@ -1863,7 +1866,7 @@ def post_all(base, bodies):
     for th in threads:
         th.join(timeout=300)
     if any(th.is_alive() for th in threads) or any(c != 200 for c, _ in replies):
-        raise SystemExit(f"routed requests failed: {[r for r in replies if r[0] != 200][:3]}")
+        raise SystemExit(f"requests failed: {[r for r in replies if r[0] != 200][:3]}")
     return [r["caption"] for _, r in replies]
 
 
@@ -3252,6 +3255,163 @@ def bench_phase(card, device):
     return launches
 
 
+# -- 15. any clip length, beams up to 16 -----------------------------------
+
+LONG_B = 8                          # clips of the long-clip cases
+WIDE_B = 16                         # clips of the wide-beam cases
+
+
+def long_wide_phase(card, device, model, decoders, s_dec, vocab):
+    """Phase 15: the kernels at clips longer than they keep in shared
+    memory and at beams of 9 to 16, each exactly its plain version in
+    float32 (tokens, and a beam's per-clip step counts), with its time
+    beside the plain version's and its bound; the serving and bench shapes
+    on the layouts and tiles they had; the service and ``AVCaptioningDual.predict`` on a
+    clip the service refused before.  Returns ({kernel: {path: launches}},
+    {kernel: largest max_abs_err})."""
+    from mvc_tpu_torch.models.captioning import captions_from_tokens
+    from mvc_tpu_torch.ops import _decode_common as dc
+    from mvc_tpu_torch.ops import beam as bm
+    from mvc_tpu_torch.ops import dual_greedy as dg
+    from mvc_tpu_torch.ops import greedy as gr
+
+    t_start = time.perf_counter()
+    f32, cells = torch.float32, ("LSTM", "LSTM")
+    errs = {"dual_greedy": 0.0, "greedy": 0.0, "beam": 0.0}
+
+    def timed(label, kernel_fn, plain_fn, work):
+        ms, plain = cuda_ms(kernel_fn, 3), cuda_ms(plain_fn, 3)
+        whole, kern, by = bounds(*work)
+        log(f"[{card}] {label}: wrapper {ms:.4f} ms, plain {plain:.4f} ms, bound {whole:.4f} ms "
+            f"whole call / {kern:.4f} ms kernel ({by})")
+
+    # (a) the serving and bench shapes keep their layouts: the greedy
+    # kernels' score rows in shared memory (the layout of the Python
+    # replica), the beam's 15-row tile with no workspace
+    for b in (B, 1024):
+        vf, af, mask = decode_inputs(30, device, b=b)
+        args, _tok, keep = dg.prepare_kernel_call(decoders, [vf, af], mask, L, f32, cells)
+        lay = stream_layout(card, "dual_greedy", dg._library(), args, keep[0])
+        if lay["att_global"]:
+            raise SystemExit(f"dual_greedy at B={b} T={T} left its shared-memory layout")
+        del keep
+    vf, af, mask = decode_inputs(30, device)
+    args, _tok, keep = gr.prepare_kernel_call(s_dec, torch.cat([af, vf], -1), mask, L, f32)
+    if stream_layout(card, "greedy", gr._library(), args, keep[0])["att_global"]:
+        raise SystemExit(f"greedy at B={B} T={T} left its shared-memory layout")
+    del keep
+    blib = bm._library()
+    for dec_, feats_ in ((decoders, [vf, af]), ([s_dec], [torch.cat([af, vf], -1)])):
+        args, _tok, _st, keep = bm.prepare_kernel_call(dec_, feats_, mask, L, W, 0.0, f32,
+                                                       cells[:len(dec_)])
+        tile, ws = blib.beam_tile_rows(ctypes.byref(args)), blib.beam_workspace_floats(
+            ctypes.byref(args), 0)
+        log(f"beam {len(dec_)} decoder(s) at B={B} T={T} W={W}: tile R={tile}, workspace {ws}")
+        if tile != 15 or ws:
+            raise SystemExit("the serving shape no longer takes the 15-row tile in shared memory")
+        del keep
+
+    # (b) long clips: dual_greedy.cu at T=1024 and T=4096, greedy.cu at
+    # T=4096, beam.cu (dual, W=5) at T=2048, all past their shared-memory fit
+    for t in (1024, 4096):
+        vf, af, mask = decode_inputs(40 + t, device, b=LONG_B, t=t)
+        args, _tok, keep = dg.prepare_kernel_call(decoders, [vf, af], mask, L, f32, cells)
+        if not stream_layout(card, "dual_greedy", dg._library(), args, keep[0])["att_global"]:
+            raise SystemExit(f"dual_greedy at T={t} should keep its score rows in the workspace")
+        del keep
+        errs["dual_greedy"] = max(errs["dual_greedy"], check_dual_greedy(
+            dg, decoders, [vf, af], mask, cells, f32, exact=True))
+        timed(f"dual_greedy_decode f32 B={LONG_B} T={t}",
+              lambda: dg.dual_greedy_decode(decoders, [vf, af], mask, L, f32, cells),
+              lambda: dg.dual_greedy_decode_reference(decoders, [vf, af], mask, L, f32, cells),
+              decode_work(decoders, (2048, 128), LONG_B * (L - 1), LONG_B * L, 4, b=LONG_B, t=t))
+    sf = torch.cat([af, vf], -1)
+    args, _tok, keep = gr.prepare_kernel_call(s_dec, sf, mask, L, f32)
+    if not stream_layout(card, "greedy", gr._library(), args, keep[0])["att_global"]:
+        raise SystemExit("greedy at T=4096 should keep its score rows in the workspace")
+    del keep
+    errs["greedy"] = check_single_greedy(gr, s_dec, sf, mask, "LSTM", f32, True, "T=4096 ")
+    timed(f"greedy_decode f32 AVCaptioning F=2176 B={LONG_B} T=4096",
+          lambda: gr.greedy_decode(s_dec, sf, mask, L, f32),
+          lambda: gr.greedy_decode_reference(s_dec, sf, mask, L, f32),
+          decode_work([s_dec], (2176,), LONG_B * (L - 1), LONG_B * L, 4, b=LONG_B, t=4096))
+    del vf, af, sf
+    vf, af, mask = decode_inputs(42, device, b=LONG_B, t=2048)
+    args, _tok, _st, keep = bm.prepare_kernel_call(decoders, [vf, af], mask, L, W, 0.0, f32, cells)
+    tile, ws = blib.beam_tile_rows(ctypes.byref(args)), blib.beam_workspace_floats(
+        ctypes.byref(args), 0)
+    log(f"beam dual at T=2048 W={W}: tile R={tile}, workspace {ws} floats")
+    if tile != 8 or not ws:
+        raise SystemExit("beam at T=2048 should take the 8-row tile with its score rows in the "
+                         "workspace")
+    del keep
+    err, _tok, steps = check_beam(bm, decoders, [vf, af], mask, cells, f32, 0.0, True, device,
+                                  "T=2048 ", tiles=(0,))
+    errs["beam"] = max(errs["beam"], err)
+    timed(f"beam_decode dual f32 B={LONG_B} T=2048 W={W}",
+          lambda: bm.beam_decode(decoders, [vf, af], mask, L, W, 0.0, f32, cells),
+          lambda: bm.beam_decode_reference(decoders, [vf, af], mask, L, W, 0.0, f32, cells),
+          decode_work(decoders, (2048, 128), int(steps.sum()) * W, LONG_B * (L + 2), 4,
+                      b=LONG_B, t=2048))
+    del vf, af
+
+    # (c) beams of 9 to 16 on the 16-row tile; 17 is refused
+    if bm.max_width() != 16 or model.max_beam_width() != 16:
+        raise SystemExit(f"the beam kernel's widest beam is {bm.max_width()}, not 16")
+    vf, af, mask = decode_inputs(43, device, b=WIDE_B)
+    for w in (9, 12, 16):
+        args, _tok, _st, keep = bm.prepare_kernel_call(decoders, [vf, af], mask, L, w, 0.0, f32,
+                                                       cells)
+        tile = blib.beam_tile_rows(ctypes.byref(args))
+        del keep
+        if tile != 16:
+            raise SystemExit(f"W={w} takes the {tile}-row tile, not the 16-row one")
+        err, _tok, steps = check_beam(bm, decoders, [vf, af], mask, cells, f32, 0.7, True, device,
+                                      f"W={w} ", w=w, tiles=(0,))
+        errs["beam"] = max(errs["beam"], err)
+        timed(f"beam_decode dual f32 B={WIDE_B} T={T} W={w} (16-row tile)",
+              lambda w=w: bm.beam_decode(decoders, [vf, af], mask, L, w, 0.7, f32, cells),
+              lambda w=w: bm.beam_decode_reference(decoders, [vf, af], mask, L, w, 0.7, f32,
+                                                   cells),
+              decode_work(decoders, (2048, 128), int(steps.sum()) * w, WIDE_B * (L + 2), 4,
+                          b=WIDE_B, t=T))
+    try:
+        bm.beam_decode(decoders, [vf, af], mask, L, 17, 0.0, f32, cells)
+        raise SystemExit("a beam of 17 launched")
+    except ValueError as e:
+        log(f"W=17 raises ValueError: {e}")
+
+    # (d) the main path: the service answers a clip it refused before;
+    # AVCaptioningDual.predict gives the captions of the plain tokens
+    plain_params = {"v_decoder": decoders[0], "a_decoder": decoders[1],
+                    "v_reconstructor": None, "a_reconstructor": None}
+    launches = {"dual_greedy": {}, "beam": {}, "greedy": {}}
+    launches["dual_greedy"]["serve dual direct, a T=1024 clip with 8 short ones"] = \
+        serve_long_clip(model, plain_params, vocab, device,
+                        lambda f, m: dg.dual_greedy_decode_reference(decoders, f, m, L), 1024)
+    vf, af, mask = decode_inputs(44, device, b=LONG_B, t=1024)
+    for mode, wrapper, plain in (
+            ("direct", dg.dual_greedy_decode,
+             lambda: dg.dual_greedy_decode_reference(decoders, [vf, af], mask, L)),
+            ("beam", bm.beam_decode,
+             lambda: bm.beam_decode_reference(decoders, [vf, af], mask, L, W))):
+        wrapper.launches = 0
+        got = model.predict(plain_params, vocab, af, vf, max_caption_len=L, mode=mode,
+                            beam_width=W, feat_mask=mask)
+        n = wrapper.launches
+        want = captions_from_tokens(vocab, plain().cpu())
+        log(f"AVCaptioningDual.predict {mode} B={LONG_B} T=1024: {sum(map(str.__eq__, got, want))}"
+            f"/{LONG_B} captions equal the plain tokens'; launches {n}; {got[0]!r}")
+        if got != want or n != 1:
+            raise SystemExit(f"AVCaptioningDual.predict ({mode}) is not the plain decode")
+        name = "dual_greedy" if mode == "direct" else "beam"
+        launches[name][f"AVCaptioningDual.predict {mode}, T=1024"] = n
+    if model.max_frames(plain_params, B, "direct") is not None:
+        raise SystemExit("AVCaptioningDual.max_frames reports a limit")
+    log(f"[{card}] phase 15: {time.perf_counter() - t_start:.1f} s")
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3385,7 +3545,8 @@ def main() -> int:
     sb = decode_inputs(7, device, b=4, t=150)
     xa, _tok, _st, xkeep = bm.prepare_kernel_call(decoders, list(sb[:2]), sb[2], L, W, 0.0, f32,
                                                   cells)
-    t_big = largest_t(lambda a: blib.beam_smem_bytes(a, 15), xa, dc.MAX_SMEM_BYTES) + 1
+    t_big = largest_t(lambda a: blib.beam_smem_bytes(a, 15),
+                      lambda a: blib.beam_workspace_floats(a, 15), xa, dc.MAX_SMEM_BYTES) + 1
     xa.T = t_big
     if blib.beam_tile_rows(ctypes.byref(xa)) != 8:
         raise SystemExit(f"T={t_big} should take the 8-row tile")
@@ -3414,8 +3575,6 @@ def main() -> int:
     plain_params = [params["v_decoder"], params["a_decoder"]]
     check_served(lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L),
                  requests, captions, vocab, device, "direct")
-    serve_over_limit(model, params, vocab, device,
-                     lambda f, m: dg.dual_greedy_decode_reference(plain_params, f, m, L))
 
     bm.beam_decode.launches = 0
     requests, captions = serve(model, params, vocab, device, "beam")
@@ -3467,10 +3626,9 @@ def main() -> int:
         f"at 67 TFLOP/s f32; bytes {g_bytes / 1e6:.1f} MB at 3.35 TB/s): {g_bound:.4f} ms")
     log(f"[{card}] dual_greedy bound (kernel alone, {g_kern / 1e9:.2f} GFLOP): {g_bound_k:.4f} ms")
     lib = dg._library()
-    stream_layout(card, "dual_greedy", lib.dual_greedy_smem_bytes, g_args, g_keep[0])
+    stream_layout(card, "dual_greedy", lib, g_args, g_keep[0])
     g_repack = cuda_ms(lambda: [dc.stream_operands(p, V) for p in g_keep[0]], 5)
     log(f"[{card}] dual_greedy weight repack inside the wrapper (f32): {g_repack:.4f} ms")
-    log(f"dual_greedy max_frames at B={B}: {dg.max_frames(decoders, cells, B)}")
     phase_timers(card, "dual_greedy f32", "dual_greedy", lib, g_args, f32, device)
     del g_keep
     bf = torch.bfloat16
@@ -3528,10 +3686,9 @@ def main() -> int:
             f"at {peak_txt}; bytes {nbytes / 1e6:.1f} MB at 3.35 TB/s): {bound:.4f} ms")
         log(f"[{card}] greedy bound {wd} (kernel alone, {kern / 1e9:.2f} GFLOP): {bound_k:.4f} ms")
         if wd == f32:
-            stream_layout(card, "greedy", gr._library().greedy_smem_bytes, s_args, s_keep[0])
+            stream_layout(card, "greedy", gr._library(), s_args, s_keep[0])
             repack = cuda_ms(lambda: [dc.stream_operands(p, V) for p in s_keep[0]], 5)
             log(f"[{card}] greedy weight repack inside the wrapper (f32): {repack:.4f} ms")
-            log(f"greedy max_frames at B={B}: {gr.max_frames(dec_, 'LSTM', B)}")
         phase_timers(card, f"greedy {wd}", "greedy", gr._library(), s_args, wd, device)
         del s_keep
     s_ms, s_plain, s_bound, s_by = s_times[f32]
@@ -3607,11 +3764,14 @@ def main() -> int:
     p14 = bench_phase(card, device)
     log(f"[{card}] phase 14: {time.perf_counter() - t0:.1f} s")
 
+    # -- 15. any clip length, beams up to 16
+    p15, p15_err = long_wide_phase(card, device, model, decoders, s_dec, vocab)
+
     record = {"kernels": [
         {"name": "dual_greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/dual_greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_dual_greedy.py:314",
-         "launches": g_launches, "max_abs_err": g_err,
+         "launches": g_launches, "max_abs_err": max(g_err, p15_err["dual_greedy"]),
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": None,
          "launches_by_path": {"serve dual direct": g_launches,
@@ -3619,11 +3779,12 @@ def main() -> int:
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("dual_greedy ")},
                               **p9["dual_greedy"], **p10["dual_greedy"],
-                              **p11["dual_greedy_decode"], **p14["dual_greedy"]}},
+                              **p11["dual_greedy_decode"], **p14["dual_greedy"],
+                              **p15["dual_greedy"]}},
         {"name": "beam_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/beam.cu",
          "replaces": "mvc_tpu/ops/pallas_beam.py:578",
-         "launches": b_launches, "max_abs_err": b_err,
+         "launches": b_launches, "max_abs_err": max(b_err, p15_err["beam"]),
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
          "library_ms": None,
          "launches_by_path": {"serve dual beam": b_launches, "serve single beam": sb_launches,
@@ -3631,11 +3792,11 @@ def main() -> int:
                               **{k.split(" ", 1)[1]: v for k, v in rest_launches.items()
                                  if k.startswith("beam ")},
                               **p9["beam"], **p10["beam"], **p11["beam_decode"],
-                              **p14["beam"]}},
+                              **p14["beam"], **p15["beam"]}},
         {"name": "greedy_decode", "route": "cuda",
          "source": "mvc_tpu_torch/csrc/greedy.cu",
          "replaces": "mvc_tpu/ops/pallas_decode.py:366",
-         "launches": s_launches, "max_abs_err": s_err,
+         "launches": s_launches, "max_abs_err": max(s_err, p15_err["greedy"]),
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None,
          "launches_by_path": {"serve single direct": s_launches,

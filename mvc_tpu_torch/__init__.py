@@ -7,3 +7,7 @@ paths run hand-written CUDA kernels (``ops/dual_greedy.py``,
 ``ops/greedy.py``, ``ops/beam.py``); every entry point runs on the card
 unless the caller passes ``device="cpu"``.
 """
+
+__version__ = "0.1.0"
+
+from mvc_tpu_torch import config  # noqa: F401,E402

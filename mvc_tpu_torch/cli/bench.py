@@ -307,8 +307,6 @@ def bench_decode(run, key):
     model, params = decode_model(kind, run.device, run.seed, vocab=VOCAB)
     decs = [params[n] for n in decoder_names(model)]
     audio, visual = decode_inputs(run.seed, b, T, run.device)
-    if run.on_card and key == "bulk":
-        log(f"dual_greedy max_frames at B={b}: {dual_greedy.max_frames(decs, batch=b)}")
 
     def call():
         return model.predict_tokens(params, audio, visual, max_caption_len=MAX_LEN, mode=mode,

@@ -1,12 +1,12 @@
 """Configuration: the port's own copy of the special ids, the decoder,
-reconstructor, trainer, mesh and model configs (``mvc_tpu/config.py:24-81,
-84-195``) and the transformer's (``mvc_tpu/models/transformer.py:32-45``),
+reconstructor, trainer, mesh, model and experiment configs
+(``mvc_tpu/config.py:24-81, 84-207``) and the transformer's (``mvc_tpu/models/transformer.py:32-45``),
 with the same default values."""
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 # Special token ids — identical to the reference Vocabulary.
@@ -147,6 +147,19 @@ class ModelConfig:
     vocab_size: int = 1024              # overwritten once the vocab is built
     max_frames: int = 64
     max_caption_len: int = 34
+
+
+@dataclass
+class ExperimentConfig:
+    """One experiment: the model, trainer and mesh configs and where its
+    checkpoints and logs go."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    training: TrainerConfig = field(default_factory=TrainerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    checkpoint_name: str = "SA-LSTM"
+    log_dir: str = "logs"
+    video_only: bool = False
 
 
 @dataclass(frozen=True)

@@ -44,6 +44,18 @@
 // begins with all its clips' beams finished (a finished clip's later steps
 // only write token 0 into beam 0's history).  wgmma, TMA and asynchronous
 // copies are later steps.
+//
+// Any clip length, beams up to 16 wide: the score rows ([R][T] per decoder)
+// are the one region that grows with T.  When the tile's layout does not
+// fit with them, they move to a global workspace ([blocks][n_dec][R][T]
+// floats, allocated by the wrapper; each block has its own and reads and
+// writes it in the same order, so the tokens do not change).  Beams of 9
+// to 16 take a third tile of 16 rows, one clip a cluster, which does not
+// fit a block's shared memory even without the score rows at the dual
+// model's widths: it keeps its logits and the regather's staging in the
+// workspace too.  The selection's candidate sets are bitsets of one 64-bit
+// word for beams up to 8 and of four for the 16-row tile (W*W <= 256,
+// CL*W <= 128 candidates).
 
 #include <limits.h>
 
@@ -57,15 +69,62 @@ struct BeamArgs {
   int B, T, V, W, Lh, n_dec, sos_id, eos_id;
   float alpha;           // GNMT length-norm exponent (0 = no norm)
   float inv6a;           // 6^-alpha, rounded to float
+  float* ws;             // the tile's global workspace (beam_workspace_floats), else unread
 };
 
 namespace {
 
 constexpr float NEG_INF_SCORE = -1e9f;   // dead-beam start, as models/beam.py
 constexpr int WIDE_ROWS = 15;            // the wide tile: three clips of W=5
-constexpr int MAX_WIDTH = 8;             // 64-bit masks over CL*W and W*W candidates
+constexpr int BEAM16_ROWS = 16;          // the tile of one clip of W=9..16
+constexpr int MAX_WIDTH = 16;            // the widest beam (the 16-row tile)
+
+// Where a tile keeps what does not fit its shared memory: nothing, the
+// score rows, or the score rows, the logits and the regather's staging.
+enum { WS_NONE = 0, WS_SCORES = 1, WS_VOCAB = 2 };
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// The widest beam an R-row tile takes: 8 in the 8- and 15-row tiles, 16 in
+// the 16-row one.
+__host__ __device__ constexpr int tile_width(int R) { return R == BEAM16_ROWS ? MAX_WIDTH : ROWS; }
+
+// A set of candidate indices below 64 * NW (the selection's taken marks).
+template <int NW>
+struct Bits {
+  unsigned long long w[NW];
+  __device__ Bits() {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = 0ull;
+  }
+  __device__ bool has(int j) const {
+    if constexpr (NW == 1) {
+      return (w[0] >> j) & 1ull;
+    } else {
+      bool b = false;
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+        if (i == (j >> 6)) b = ((w[i] >> (j & 63)) & 1ull) != 0;
+      return b;
+    }
+  }
+  __device__ void add(int j) {
+    if constexpr (NW == 1) {
+      w[0] |= 1ull << j;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+        if (i == (j >> 6)) w[i] |= 1ull << (j & 63);
+    }
+  }
+};
+
+// 64-bit words of an R-row tile's candidate sets: CL*W per row, W*W per clip.
+template <int R>
+__host__ __device__ constexpr int mask_words() {
+  constexpr int w = tile_width(R), n = CL * w > w * w ? CL * w : w * w;
+  return (n + 63) / 64;
+}
 
 // Shared-memory layout, in floats, identical in every block of a cluster.
 struct Layout {
@@ -85,7 +144,9 @@ struct Layout {
 // between the gates' cluster barrier and the selection's, when every block
 // has left the gates and none has begun the next embed, so the union needs
 // no barrier of its own.  tmp, the regather's staging, reuses the logits.
-__host__ __device__ inline Layout layout(const BeamArgs& a, int R) {
+// With WS_SCORES the score rows take no room here, with WS_VOCAB neither do
+// the logits and tmp (ws_floats: where they go instead).
+__host__ __device__ inline Layout layout(const BeamArgs& a, int R, int ws = WS_NONE) {
   Layout L = {};
   int o = 0, gc = 0, units = 0, sum_h = 0;
   for (int d = 0; d < a.n_dec; ++d) {
@@ -110,7 +171,7 @@ __host__ __device__ inline Layout layout(const BeamArgs& a, int R) {
   int u = o;                                                       // embed, attention, gates
   for (int d = 0; d < a.n_dec; ++d) {
     L.x[d] = u;   u = round4(u + R * step_input_width(a.dec[d]));  // [R][Kx] = [emb ; ctx]
-    L.att[d] = u; u = round4(u + R * a.T);                         // [R][T]
+    L.att[d] = u; u = round4(u + (ws == WS_NONE ? R * a.T : 0));   // [R][T]
   }
   L.ax = u;      u = round4(u + R * gc);                           // x-side gate sums
   L.ah = u;      u = round4(u + R * gc);                           // h-side gate sums
@@ -118,7 +179,7 @@ __host__ __device__ inline Layout layout(const BeamArgs& a, int R) {
   int v = o;                                                       // vocab, selection, regather
   L.logits = v;                                                    // [n_dec][R][vocab slice]
   L.tmp = v;                                                       // [R][hist | c units | h]
-  v = round4(v + imax(a.n_dec * R * Vc, R * (a.Lh + units + sum_h)));
+  if (ws != WS_VOCAB) v = round4(v + imax(a.n_dec * R * Vc, R * (a.Lh + units + sum_h)));
   L.cand_v = v;  v = round4(v + CL * R * a.W);                     // every block's per-row top-W
   L.cand_i = v;  v = round4(v + CL * R * a.W);
   L.lse = v;     v = round4(v + CL * R * 4);                       // every block's (max, sum) per decoder
@@ -130,6 +191,22 @@ __host__ __device__ inline Layout layout(const BeamArgs& a, int R) {
   L.sel_cum = v; v = round4(v + R);
   L.total = imax(u, v);
   return L;
+}
+
+// Floats of one block's part of the global workspace: the score rows of
+// every decoder ([n_dec][R][T]), then with WS_VOCAB the logits / tmp union.
+__host__ __device__ inline size_t ws_floats(const BeamArgs& a, int R, int ws) {
+  if (ws == WS_NONE) return 0;
+  size_t n = (size_t)a.n_dec * R * a.T;
+  if (ws == WS_VOCAB) {
+    int units = 0, sum_h = 0;
+    for (int d = 0; d < a.n_dec; ++d) {
+      units += cdiv(a.dec[d].H, CL);
+      sum_h += a.dec[d].H;
+    }
+    n += (size_t)imax(a.n_dec * R * cdiv(a.V, CL), R * (a.Lh + units + sum_h));
+  }
+  return n;
 }
 
 // Decoder d's h in this block <- the CL blocks' staged slices of the new
@@ -155,7 +232,7 @@ __device__ void pull_h(int H, float* sm, const Layout& Lo, int d, cg::cluster_gr
   }
 }
 
-template <typename WT, int R>
+template <typename WT, int R, int WS>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
 beam_kernel(const BeamArgs args) {
   extern __shared__ __align__(16) float sm[];
@@ -167,7 +244,15 @@ beam_kernel(const BeamArgs args) {
   const int nrows = ncl * W;                      // rows of whole clips
   const int clip0 = (blockIdx.x / CL) * ncl;
   const int nclips = max(0, min(ncl, B - clip0)); // clips < B
-  const Layout Lo = layout(args, R);
+  const Layout Lo = layout(args, R, WS);
+  float* ws = WS == WS_NONE ? nullptr : args.ws + (size_t)blockIdx.x * ws_floats(args, R, WS);
+  float* logits = WS == WS_VOCAB ? ws + (size_t)n_dec * R * T : sm + Lo.logits;
+  auto scores = [&](int d) -> float* {   // decoder d's [R][T] score rows
+    if constexpr (WS == WS_NONE)
+      return sm + Lo.att[d];
+    else
+      return ws + (size_t)d * R * T;
+  };
   int* prev = reinterpret_cast<int*>(sm + Lo.prev);
   int* fin = reinterpret_cast<int*>(sm + Lo.fin);
   int* eos = reinterpret_cast<int*>(sm + Lo.eos);
@@ -214,14 +299,16 @@ beam_kernel(const BeamArgs args) {
 
     // -- attention (every block), then this block's gate units, staged
     for (int d = 0; d < n_dec; ++d) {
-      attention<WT, R>(args.dec[d], sm, Lo, d, args.mask, clip0, W, B, T);
+      attention<WT, R>(args.dec[d], sm, Lo, d, scores(d), args.mask, clip0, W, B, T);
       __syncthreads();
     }
     for (int d = 0; d < n_dec; ++d) {
       if (args.dec[d].cell == MVC_CELL_LSTM)
-        gates<WT, 4, R, true>(args.dec[d], sm, Lo, d, cluster, rank, clip0, W, B, T, 0);
+        gates<WT, 4, R, true>(args.dec[d], sm, Lo, d, scores(d), cluster, rank, clip0, W, B, T,
+                              0);
       else
-        gates<WT, 3, R, true>(args.dec[d], sm, Lo, d, cluster, rank, clip0, W, B, T, 0);
+        gates<WT, 3, R, true>(args.dec[d], sm, Lo, d, scores(d), cluster, rank, clip0, W, B, T,
+                              0);
       __syncthreads();
     }
     cluster.sync();
@@ -234,7 +321,7 @@ beam_kernel(const BeamArgs args) {
     //    and decoder (max, sum of exp) and the fused logits in slot 0
     for (int d = 0; d < n_dec; ++d) {
       const DecoderArgs& D = args.dec[d];
-      float* l = sm + Lo.logits + d * R * Vc;
+      float* l = logits + d * R * Vc;
       matvec_cols<WT, R>(static_cast<const WT*>(D.wout), V, D.H, sm + Lo.h[d], D.H, nv, nv, 0,
                          v0, sm + Lo.part, l);
       for (int i = tid; i < R * nv; i += NT) l[i] += D.b_out[v0 + i % nv];
@@ -242,7 +329,7 @@ beam_kernel(const BeamArgs args) {
     __syncthreads();
     for (int rd = warp; rd < nrows * n_dec; rd += NWARPS) {   // one warp per (row, decoder)
       const int r = rd % nrows, d = rd / nrows;
-      const float* l = sm + Lo.logits + d * R * Vc + r * nv;
+      const float* l = logits + d * R * Vc + r * nv;
       float m = -INFINITY;
       for (int j = lane; j < nv; j += 32) m = fmaxf(m, l[j]);
       m = warp_max(m);
@@ -258,10 +345,10 @@ beam_kernel(const BeamArgs args) {
     }
     __syncthreads();
     if (n_dec == 2)
-      for (int i = tid; i < R * nv; i += NT) sm[Lo.logits + i] += sm[Lo.logits + R * Vc + i];
+      for (int i = tid; i < R * nv; i += NT) logits[i] += logits[R * Vc + i];
     __syncthreads();
     for (int r = warp; r < nrows; r += NWARPS) {   // one warp per row: W passes of argmax,
-      float* f = sm + Lo.logits + r * nv;          // lowest index on ties
+      float* f = logits + r * nv;                  // lowest index on ties
       for (int k = 0; k < W; ++k) {
         float bv = -INFINITY;
         int bi = INT_MAX;
@@ -301,7 +388,7 @@ beam_kernel(const BeamArgs args) {
       const bool f_r = fin[r] != 0;
       const float lens = f_r ? (float)eos[r] : (float)(t + 1);
       const float norm = args.alpha != 0.f ? expf(args.alpha * logf(5.f + lens)) * args.inv6a : 1.f;
-      unsigned long long taken = 0ull;
+      Bits<mask_words<R>()> taken;
       for (int k = 0; k < W; ++k) {
         float bv = -INFINITY;
         int bi = INT_MAX, bj = -1;
@@ -309,10 +396,10 @@ beam_kernel(const BeamArgs args) {
           const int p = j / W, kk = j - p * W;
           const float v = sm[Lo.cand_v + (p * R + r) * W + kk];
           const int i = cand_i[(p * R + r) * W + kk];
-          if (i == INT_MAX || ((taken >> j) & 1ull)) continue;
+          if (i == INT_MAX || taken.has(j)) continue;
           if (bj < 0 || better(v, i, bv, bi)) { bv = v; bi = i; bj = j; }
         }
-        if (bj >= 0) taken |= 1ull << bj;
+        if (bj >= 0) taken.add(bj);
         const float cand = f_r ? cum[r] : cum[r] + (bv - lse);
         sm[Lo.rc_u + r * W + k] = cand;
         sm[Lo.rc_n + r * W + k] = args.alpha != 0.f ? cand / norm : cand;
@@ -325,18 +412,18 @@ beam_kernel(const BeamArgs args) {
     //    ties to the lowest w*V + token
     if (tid < ncl) {
       const int c = tid;
-      unsigned long long taken = 0ull;
+      Bits<mask_words<R>()> taken;
       for (int k = 0; k < W; ++k) {
         float bv = 0.f;
         int bg = INT_MAX, bj = -1;
         for (int j = 0; j < W * W; ++j) {
-          if ((taken >> j) & 1ull) continue;
+          if (taken.has(j)) continue;
           const int w = j / W;
           const float v = sm[Lo.rc_n + c * W * W + j];
           const int g = w * V + rc_t[c * W * W + j];
           if (bj < 0 || better(v, g, bv, bg)) { bv = v; bg = g; bj = j; }
         }
-        taken |= 1ull << bj;
+        taken.add(bj);
         const int row = c * W + k;
         sel_w[row] = bj / W;
         sel_tok[row] = rc_t[c * W * W + bj];
@@ -352,7 +439,7 @@ beam_kernel(const BeamArgs args) {
     int stride = Lh;
     for (int d = 0; d < n_dec; ++d) { c_off[d] = stride; stride += cdiv(args.dec[d].H, CL); }
     for (int d = 0; d < n_dec; ++d) { h_off[d] = stride; stride += args.dec[d].H; }
-    float* tmp = sm + Lo.tmp;
+    float* tmp = WS == WS_VOCAB ? logits : sm + Lo.tmp;
     for (int i = tid; i < nrows * Lh; i += NT) {
       const int r = i / Lh, j = i - r * Lh;
       reinterpret_cast<int*>(tmp)[r * stride + j] = hist[i];
@@ -416,87 +503,126 @@ beam_kernel(const BeamArgs args) {
   cluster.sync();                      // no block leaves while a peer may still access it
 }
 
-size_t smem_bytes(const BeamArgs& a, int R) { return (size_t)layout(a, R).total * sizeof(float); }
-
-// The tile a launch takes at these shapes: the wide one when its layout
-// fits a block's shared memory and holds more whole clips than ROWS rows
-// do, else ROWS when that fits, else 0 (the wrapper raises).
-int tile_rows(const BeamArgs& a) {
-  if (smem_bytes(a, WIDE_ROWS) <= SMEM_LIMIT && WIDE_ROWS / a.W > ROWS / a.W) return WIDE_ROWS;
-  return smem_bytes(a, ROWS) <= SMEM_LIMIT ? ROWS : 0;
+size_t smem_bytes(const BeamArgs& a, int R, int ws = WS_NONE) {
+  return (size_t)layout(a, R, ws).total * sizeof(float);
 }
 
-template <typename WT, int R>
+// A tile: its rows and where it keeps what does not fit shared memory.
+struct Tile {
+  int R, ws;
+};
+
+// The tile a launch takes at these shapes (rows = 0) or the one asked for
+// (8, 15 or 16); R = 0 when no tile takes these shapes.  Beams up to 8 take
+// the wide tile when its layout fits a block's shared memory and holds
+// more whole clips than ROWS rows do, else ROWS, with the score rows in the
+// workspace when they do not fit; wider beams take the 16-row tile.
+Tile tile_of(const BeamArgs& a, int rows) {
+  const Tile none = {0, WS_NONE};
+  if (a.W < 1 || a.W > MAX_WIDTH) return none;
+  if (rows == 0) {
+    if (a.W > ROWS) return {BEAM16_ROWS, WS_VOCAB};
+    if (smem_bytes(a, WIDE_ROWS) <= SMEM_LIMIT && WIDE_ROWS / a.W > ROWS / a.W)
+      return {WIDE_ROWS, WS_NONE};
+    rows = ROWS;
+  }
+  if (rows == BEAM16_ROWS) return {BEAM16_ROWS, WS_VOCAB};
+  if (a.W > ROWS) return none;
+  if (rows == WIDE_ROWS) return {WIDE_ROWS, WS_NONE};
+  if (rows == ROWS) return {ROWS, smem_bytes(a, ROWS) <= SMEM_LIMIT ? WS_NONE : WS_SCORES};
+  return none;
+}
+
+int grid_blocks(const BeamArgs& a, int R) { return cdiv(a.B, R / a.W) * CL; }
+
+template <typename WT, int R, int WS>
 cudaError_t set_smem(const BeamArgs& a) {
-  return cudaFuncSetAttribute(beam_kernel<WT, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(a, R));
+  return cudaFuncSetAttribute(beam_kernel<WT, R, WS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(a, R, WS));
 }
 
-template <typename WT, int R>
+template <typename WT, int R, int WS>
 int launch(const BeamArgs& a, cudaStream_t stream) {
-  cudaError_t err = set_smem<WT, R>(a);
+  if (WS != WS_NONE && a.ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem<WT, R, WS>(a);
   if (err != cudaSuccess) return (int)err;
-  beam_kernel<WT, R><<<cdiv(a.B, R / a.W) * CL, NT, smem_bytes(a, R), stream>>>(a);
+  beam_kernel<WT, R, WS><<<grid_blocks(a, R), NT, smem_bytes(a, R, WS), stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename WT>
+int launch_tile(const BeamArgs& a, const Tile& t, cudaStream_t stream) {
+  if (t.R == WIDE_ROWS) return launch<WT, WIDE_ROWS, WS_NONE>(a, stream);
+  if (t.R == ROWS)
+    return t.ws == WS_NONE ? launch<WT, ROWS, WS_NONE>(a, stream)
+                           : launch<WT, ROWS, WS_SCORES>(a, stream);
+  if (t.R == BEAM16_ROWS) return launch<WT, BEAM16_ROWS, WS_VOCAB>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Clusters of the kernel the card holds at once at these shapes (-1 when
 // the query fails): with fewer than the grid's clusters, clusters run in
 // waves.
-template <typename WT, int R>
+template <typename WT, int R, int WS>
 int max_active_clusters(const BeamArgs& a) {
-  if (set_smem<WT, R>(a) != cudaSuccess) return -1;
+  if (set_smem<WT, R, WS>(a) != cudaSuccess) return -1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(a.B, R / a.W) * CL);
+  cfg.gridDim = dim3(grid_blocks(a, R));
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes(a, R);
+  cfg.dynamicSmemBytes = smem_bytes(a, R, WS);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, beam_kernel<WT, R>, &cfg) != cudaSuccess) return -1;
+  if (cudaOccupancyMaxActiveClusters(&n, beam_kernel<WT, R, WS>, &cfg) != cudaSuccess) return -1;
   return n;
+}
+
+template <typename WT>
+int clusters_tile(const BeamArgs& a, const Tile& t) {
+  if (t.R == WIDE_ROWS) return max_active_clusters<WT, WIDE_ROWS, WS_NONE>(a);
+  if (t.R == ROWS)
+    return t.ws == WS_NONE ? max_active_clusters<WT, ROWS, WS_NONE>(a)
+                           : max_active_clusters<WT, ROWS, WS_SCORES>(a);
+  if (t.R == BEAM16_ROWS) return max_active_clusters<WT, BEAM16_ROWS, WS_VOCAB>(a);
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The row tile a launch with rows = 0 takes at these shapes: 15 or 8, or 0
-// when neither fits a block's shared memory.
-int beam_tile_rows(const BeamArgs* args) { return tile_rows(*args); }
+// The row tile a launch with rows = 0 takes at these shapes: 15, 8 or 16,
+// or 0 when none takes them.
+int beam_tile_rows(const BeamArgs* args) { return tile_of(*args, 0).R; }
 
 // Dynamic shared memory one block needs at these shapes with an R-row tile
-// (rows = 0: the tile beam_tile_rows picks, the 8-row one when none fits;
-// the wrapper checks it against the card's limit before launching).
+// (rows = 0: the tile beam_tile_rows picks; the 8-row one when none takes
+// them); the wrapper checks it against the card's limit before launching.
 size_t beam_smem_bytes(const BeamArgs* args, int rows) {
-  const int R = rows ? rows : tile_rows(*args);
-  return smem_bytes(*args, R ? R : ROWS);
+  const Tile t = tile_of(*args, rows);
+  return t.R ? smem_bytes(*args, t.R, t.ws) : smem_bytes(*args, ROWS);
 }
 
-// The largest beam width the kernel takes, whatever the tile.
+// Floats of the global workspace (args->ws) a launch with this tile needs
+// at these shapes: 0 when the tile keeps everything in shared memory.
+size_t beam_workspace_floats(const BeamArgs* args, int rows) {
+  const Tile t = tile_of(*args, rows);
+  return t.R ? ws_floats(*args, t.R, t.ws) * grid_blocks(*args, t.R) : 0;
+}
+
+// The largest beam width the kernel takes (the 16-row tile's).
 int beam_max_width(void) { return MAX_WIDTH; }
 
 // Launches on `stream` with an R-row tile (rows = 0: beam_tile_rows's
-// choice; otherwise 8 or 15); returns cudaGetLastError() (0 = launched).
+// choice; otherwise 8, 15 or 16); returns cudaGetLastError() (0 = launched).
 int beam_launch(const BeamArgs* args, int weight_bf16, int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = rows ? rows : tile_rows(*args);
-  if (args->W < 1 || args->W > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  if (R == WIDE_ROWS)
-    return weight_bf16 ? launch<__nv_bfloat16, WIDE_ROWS>(*args, s)
-                       : launch<float, WIDE_ROWS>(*args, s);
-  if (R == ROWS)
-    return weight_bf16 ? launch<__nv_bfloat16, ROWS>(*args, s) : launch<float, ROWS>(*args, s);
-  return (int)cudaErrorInvalidValue;
+  const Tile t = tile_of(*args, rows);
+  return weight_bf16 ? launch_tile<__nv_bfloat16>(*args, t, s) : launch_tile<float>(*args, t, s);
 }
 
 int beam_max_active_clusters(const BeamArgs* args, int weight_bf16, int rows) {
-  const int R = rows ? rows : tile_rows(*args);
-  if (R == WIDE_ROWS)
-    return weight_bf16 ? max_active_clusters<__nv_bfloat16, WIDE_ROWS>(*args)
-                       : max_active_clusters<float, WIDE_ROWS>(*args);
-  if (R == ROWS)
-    return weight_bf16 ? max_active_clusters<__nv_bfloat16, ROWS>(*args)
-                       : max_active_clusters<float, ROWS>(*args);
-  return -1;
+  const Tile t = tile_of(*args, rows);
+  return weight_bf16 ? clusters_tile<__nv_bfloat16>(*args, t) : clusters_tile<float>(*args, t);
 }
 
 const char* beam_error_string(int code) {

@@ -1,7 +1,7 @@
 // Building blocks of the whole-decode kernels (dual_greedy.cu, beam.cu).
 //
 // A thread-block cluster of CL blocks owns a tile of R decoder rows (a
-// template parameter: ROWS = 8 for the greedy decodes, 8 or 15 for the
+// template parameter: ROWS = 8 for the greedy decodes, 8, 15 or 16 for the
 // beam search) and runs every step of the decode for them.  Each block of
 // the cluster owns 1/CL of every weight's output columns (attention query,
 // gate units, vocab slice) and streams only those, so a step's weights are
@@ -259,15 +259,16 @@ __device__ __forceinline__ int row_clip(int clip0, int r, int rpc, int B) {
 // Energies, masked softmax and (direct branch) the context rows of the step
 // input, for every row of the tile; every block of the cluster computes
 // them (bit-identically) from the gathered query.  Lay is the kernel's
-// shared-memory layout (offsets in floats: q, att, x per decoder).
+// shared-memory layout (offsets in floats: q, x per decoder); att holds
+// the tile's [R][T] score rows of decoder d, in shared memory or in the
+// block's own part of a global workspace.
 template <typename WT, int R = ROWS, typename Lay>
-__device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
+__device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d, float* att,
                           const float* mask, int clip0, int rpc, int B, int T) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int A = D.A, E = D.E, Kx = step_input_width(D);
   const WT* keys = static_cast<const WT*>(D.keys);
   const float* q = sm + Lo.q[d];
-  float* att = sm + Lo.att[d];
   float* x = sm + Lo.x[d];
 
   for (int p = warp; p < R * T; p += NWARPS) {
@@ -313,14 +314,15 @@ __device__ void attention(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
 }
 
 // This block's gate units: the x-side and h-side sums over its columns,
-// then the cell update (gates.cuh).  Lay holds h, c ([R][own units]), x,
-// att per decoder and the scratch part, ax, ah.  The new h slice goes
+// then the cell update (gates.cuh).  Lay holds h, c ([R][own units]), x
+// per decoder and the scratch part, ax, ah; att is decoder d's [R][T]
+// attention weights (attention()).  The new h slice goes
 // either (STAGE false) to buffer cur ^ 1 of every block of the cluster (h
 // is two [R][H] buffers), or (STAGE true) to this block's own staging
 // slice hs ([R][ceil(H / CL)]), which the peers pull after the next
 // cluster barrier (h is one [R][H] buffer, read here unchanged).
 template <typename WT, int G, int R = ROWS, bool STAGE = false, typename Lay>
-__device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
+__device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d, const float* att,
                       cg::cluster_group& cluster, int rank, int clip0, int rpc, int B, int T,
                       int cur) {
   const int H = D.H, GH = G * H, Kx = step_input_width(D);
@@ -330,7 +332,6 @@ __device__ void gates(const DecoderArgs& D, float* sm, const Lay& Lo, int d,
   float* ah = sm + Lo.ah;
   float* h_cur = sm + Lo.h[d] + cur * R * H;
   const int nxt_off = Lo.h[d] + (cur ^ 1) * R * H;
-  const float* att = sm + Lo.att[d];
   float* c = sm + Lo.c[d];
 
   matvec_cols<WT, R>(static_cast<const WT*>(D.wi), GH, Kx, sm + Lo.x[d], Kx, G * nu, nu, H, u0,

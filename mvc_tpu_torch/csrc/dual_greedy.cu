@@ -27,10 +27,11 @@
 // the slices in a fixed order through a ring of shared-memory stages with
 // cp.async.bulk, running ahead of the 16 consumer warps across phases and
 // steps; the consumers read each weight once from shared memory and apply
-// it to the 8 rows in registers.  Rank r attends over row r alone and sends
-// the weights to its peers; the hidden state, the next query and the argmax
-// candidates cross the cluster through distributed shared memory, with
-// three cluster barriers a step.  wgmma (bf16) and more rows per weight load
+// it to the 8 rows in registers.  Rank r attends over row r alone, its
+// score rows in shared memory or, for clips too long for that, in a global
+// workspace; the hidden state, the next query and the argmax candidates
+// cross the cluster through distributed shared memory, with three cluster
+// barriers a step.  wgmma (bf16) and more rows per weight load
 // are later changes.
 
 #include "greedy_common.cuh"
@@ -42,6 +43,10 @@ extern "C" {
 // Dynamic shared memory one block needs at these shapes (the wrapper checks
 // it against the card's limit before launching).
 size_t dual_greedy_smem_bytes(const DualGreedyArgs* args) { return greedy_smem(*args); }
+
+// Floats of the global workspace (args->ws) a launch needs at these shapes:
+// 0 while the score rows fit shared memory.
+size_t dual_greedy_workspace_floats(const DualGreedyArgs* args) { return greedy_workspace(*args); }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 int dual_greedy_launch(const DualGreedyArgs* args, int weight_bf16, void* stream) {

@@ -43,6 +43,10 @@ extern "C" {
 // it against the card's limit before launching).
 size_t greedy_smem_bytes(const GreedyArgs* args) { return greedy_smem(*args); }
 
+// Floats of the global workspace (args->ws) a launch needs at these shapes:
+// 0 while the score rows fit shared memory.
+size_t greedy_workspace_floats(const GreedyArgs* args) { return greedy_workspace(*args); }
+
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 int greedy_launch(const GreedyArgs* args, int weight_bf16, void* stream) {
   return greedy_launch_any(*args, weight_bf16, nullptr, stream);

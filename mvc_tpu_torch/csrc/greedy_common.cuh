@@ -37,6 +37,13 @@
 // embedding rows of the previous tokens, the mask, and the per-row operands
 // (attention keys, the factored slab P, the direct branch's features), read
 // from global memory as the L2 holds them.
+//
+// The score rows (a row's T attention energies, then weights) are the one
+// part of the layout that grows with T.  They live in shared memory while
+// the layout fits a block's; for longer clips they move to a global
+// workspace of [blocks][ND][T] floats that the wrapper allocates (the
+// GATT instantiation), and the block reads and writes them in the same
+// order, so the tokens do not depend on where they live.
 #pragma once
 
 #include <stdint.h>
@@ -60,6 +67,7 @@ struct GreedyArgsT {
   const float* mask;     // [B, T]: > 0 = attendable frame
   int* tokens;           // [B, max_len] out
   int B, T, max_len, V, sos_id;
+  float* ws;             // [blocks][ND][T] score rows when they leave shared memory, else unread
 };
 
 namespace {
@@ -159,11 +167,12 @@ template <int ND>
 struct Layout {
   int h[ND], hs[ND], c[ND], x[ND], q[ND], att[ND], ps[ND], bias[ND];   // per decoder
   int part, px, pv, red_v, red_i, gather_v, gather_i, prev, bars, ring, stages;
-  size_t bytes;   // > SMEM_LIMIT when the shapes do not fit
+  int att_global;  // the score rows live in the global workspace (att[] takes no room)
+  size_t bytes;    // > SMEM_LIMIT when the shapes do not fit
 };
 
 template <int ND>
-__host__ __device__ inline Layout<ND> layout(const GreedyArgsT<ND>& a) {
+__host__ __device__ inline Layout<ND> layout_with(const GreedyArgsT<ND>& a, bool att_global) {
   constexpr int S = n_streams<ND>();
   Layout<ND> L;
   int o = 0, pq = 0, pg = 0, pv = 0;
@@ -177,7 +186,7 @@ __host__ __device__ inline Layout<ND> layout(const GreedyArgsT<ND>& a) {
     L.c[d] = o;    o = round4(o + ROWS * s.U);       // [ROWS][U] own units of c
     L.x[d] = o;    o = round4(o + ROWS * s.Kxp);     // [ROWS][Kxp] step input [emb ; ctx], rounded
     L.q[d] = o;    o = round4(o + D.A);              // [A] attention query of the block's own row
-    L.att[d] = o;  o = round4(o + ROWS * a.T);       // [ROWS][T]
+    L.att[d] = o;  o = round4(o + (att_global ? 0 : ROWS * a.T));   // [ROWS][T]
     L.ps[d] = o;   o = round4(o + (D.factored ? ROWS * s.ncg : 0));   // [ROWS][ncg] P-sums, factored
     L.bias[d] = o; o += s.nb;                        // resident biases and w_row
     const int q = k_groups(s.ncq) * ROWS * s.ncq, g = k_groups(s.ncg) * ROWS * s.ncg;
@@ -206,8 +215,17 @@ __host__ __device__ inline Layout<ND> layout(const GreedyArgsT<ND>& a) {
   int st = fixed < SMEM_LIMIT ? (int)((SMEM_LIMIT - fixed) / STAGE_BYTES) : 0;
   st = st > MAX_STAGES ? MAX_STAGES : (st < MIN_STAGES ? MIN_STAGES : st);
   L.stages = st;
+  L.att_global = att_global;
   L.bytes = ok ? fixed + (size_t)st * STAGE_BYTES : TOO_LARGE;
   return L;
+}
+
+// The layout with the score rows in shared memory where that fits, else
+// with them in the global workspace.
+template <int ND>
+__host__ __device__ inline Layout<ND> layout(const GreedyArgsT<ND>& a) {
+  const Layout<ND> L = layout_with(a, false);
+  return L.bytes <= SMEM_LIMIT ? L : layout_with(a, true);
 }
 
 // ---------------------------------------------------------------- barriers
@@ -506,15 +524,24 @@ __device__ __forceinline__ float sum_partial(const float* part, int ncp, int r, 
 // decoder at once: energies over the T frames from its query, the masked
 // softmax, and the context's share of the step: on the factored branch the
 // attention-weighted sums of P (each block gets those of its gate units),
-// on the direct branch the context part of the step input.  The weights
-// and the context go into the peers, which read them after the next
-// cluster barrier.  Ends with the consumers synchronized.
-template <typename WT, int ND>
+// on the direct branch the context part of the step input.  The context
+// goes into the peers, which read it after the next cluster barrier; with
+// the score rows in shared memory the weights go into every peer too.
+// With GATT the block's score rows are its own rows of the global
+// workspace, which only its own consumers touch.  Ends with the consumers
+// synchronized.
+template <typename WT, int ND, bool GATT>
 __device__ void attend_row(const GreedyArgsT<ND>& a, const SDims (&s)[ND], float* sm,
                            const Layout<ND>& Lo, int row0, int rank, cg::cluster_group& cluster) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int T = a.T, r = rank, row = min(row0 + r, a.B - 1);
   const float* mrow = a.mask + (size_t)row * T;
+  auto scores = [&](int d) -> float* {   // decoder d's score row of row r
+    if constexpr (GATT)
+      return a.ws + ((size_t)blockIdx.x * ND + d) * T;
+    else
+      return sm + Lo.att[d] + r * T;
+  };
   for (int i = warp; i < ND * T; i += NWARPS) {        // (decoder, frame) pairs
     const int d = i / T, t = i - d * T, A = a.dec[d].A;
     const WT* keys = static_cast<const WT*>(a.dec[d].keys) + ((size_t)row * T + t) * A;
@@ -524,11 +551,11 @@ __device__ void attend_row(const GreedyArgsT<ND>& a, const SDims (&s)[ND], float
 #pragma unroll 8
     for (int k = lane; k < A; k += 32) e += tanhf(ld(keys, k) + q[k]) * w_row[k];
     e = warp_sum(e);
-    if (lane == 0) sm[Lo.att[d] + r * T + t] = mrow[t] > 0.f ? e : NEG;
+    if (lane == 0) scores(d)[t] = mrow[t] > 0.f ? e : NEG;
   }
   consumers_sync();
   if (warp < ND) {
-    float* ar = sm + Lo.att[warp] + r * T;
+    float* ar = scores(warp);
     float m = -INFINITY;
     for (int t = lane; t < T; t += 32) m = fmaxf(m, ar[t]);
     m = warp_max(m);
@@ -546,7 +573,7 @@ __device__ void attend_row(const GreedyArgsT<ND>& a, const SDims (&s)[ND], float
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     const DecoderArgs& D = a.dec[d];
-    const float* ar = sm + Lo.att[d] + r * T;
+    const float* ar = scores(d);
     if (D.factored) {   // the context's gate preactivations of row r, sent to each unit's block
       const int H = D.H, U = s[d].U, GH = s[d].G * H;
       const WT* P = static_cast<const WT*>(D.slab) + (size_t)row * T * GH;
@@ -583,10 +610,11 @@ __device__ void attend_row(const GreedyArgsT<ND>& a, const SDims (&s)[ND], float
         for (int p = 0; p < CL; ++p) cluster.map_shared_rank(sm, p)[xo + f] = v;
       }
     }
-    for (int i = tid; i < (CL - 1) * T; i += NT) {    // the weights into every peer
-      const int p = (r + 1 + i / T) % CL, t = i % T;
-      cluster.map_shared_rank(sm, p)[Lo.att[d] + r * T + t] = ar[t];
-    }
+    if constexpr (!GATT)
+      for (int i = tid; i < (CL - 1) * T; i += NT) {  // the weights into every peer
+        const int p = (r + 1 + i / T) % CL, t = i % T;
+        cluster.map_shared_rank(sm, p)[Lo.att[d] + r * T + t] = ar[t];
+      }
   }
   consumers_sync();
 }
@@ -657,7 +685,7 @@ __device__ void pull_h(const DecoderArgs& D, const SDims& s, float* sm, int h_of
   }
 }
 
-template <typename WT, int ND, bool TIMED>
+template <typename WT, int ND, bool TIMED, bool GATT>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NTHREADS, 1)
 greedy_kernel(const GreedyArgsT<ND> args, long long* timer) {
   constexpr int S = n_streams<ND>();
@@ -721,7 +749,7 @@ greedy_kernel(const GreedyArgsT<ND> args, long long* timer) {
         sm[Lo.x[d] + r * s[d].Kxp + k] = ld(emb, (size_t)prev[d * ROWS + r] * D.E + k);
       }
     }
-    attend_row<WT, ND>(args, s, sm, Lo, row0, rank, cluster);
+    attend_row<WT, ND, GATT>(args, s, sm, Lo, row0, rank, cluster);
     mark<TIMED>(tm, 1);
     cluster_sync();
     mark<TIMED>(tm, 2);
@@ -852,19 +880,34 @@ size_t greedy_smem(const GreedyArgsT<ND>& a) {
   return layout(a).bytes;
 }
 
-template <typename WT, int ND, bool TIMED>
-int greedy_launch_on(const GreedyArgsT<ND>& a, long long* timer, cudaStream_t stream) {
+// Floats of the global workspace a launch needs at these shapes (0: the
+// score rows fit shared memory).
+template <int ND>
+size_t greedy_workspace(const GreedyArgsT<ND>& a) {
+  return layout(a).att_global ? (size_t)cdiv(a.B, ROWS) * CL * ND * a.T : 0;
+}
+
+template <typename WT, int ND, bool TIMED, bool GATT>
+int greedy_launch_as(const GreedyArgsT<ND>& a, long long* timer, cudaStream_t stream) {
   const size_t bytes = greedy_smem(a);
   if (bytes > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(greedy_kernel<WT, ND, TIMED>,
+  cudaError_t err = cudaFuncSetAttribute(greedy_kernel<WT, ND, TIMED, GATT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = cdiv(a.B, ROWS) * CL;
-  greedy_kernel<WT, ND, TIMED><<<blocks, NTHREADS, bytes, stream>>>(a, timer);
+  greedy_kernel<WT, ND, TIMED, GATT><<<blocks, NTHREADS, bytes, stream>>>(a, timer);
   return (int)cudaGetLastError();
 }
 
-// Launches on `stream` with float32 or bfloat16 weights; returns
+template <typename WT, int ND, bool TIMED>
+int greedy_launch_on(const GreedyArgsT<ND>& a, long long* timer, cudaStream_t stream) {
+  if (!layout(a).att_global) return greedy_launch_as<WT, ND, TIMED, false>(a, timer, stream);
+  if (a.ws == nullptr) return (int)cudaErrorInvalidValue;
+  return greedy_launch_as<WT, ND, TIMED, true>(a, timer, stream);
+}
+
+// Launches on `stream` with float32 or bfloat16 weights (a.ws: the
+// workspace of greedy_workspace floats, when that is not 0); returns
 // cudaGetLastError() (0 = launched).  A non-null `timer` (int64,
 // TIMER_HEAD + (max_len - 1) * N_MARKS entries) takes the timed
 // instantiation, which records the per-phase clocks.

@@ -12,7 +12,7 @@ contractions, fixed abbreviations); tokens are lowercased.
 from __future__ import annotations
 
 import re
-from typing import List
+from typing import Callable, List
 
 # --------------------------------------------------------------- rule tables
 # Prefix/suffix single characters (spacy LIST_PUNCT + LIST_QUOTES +
@@ -169,3 +169,8 @@ def _fallback_tokenize(text: str) -> List[str]:
 def tokenize(text: str) -> List[str]:
     """Lowercased word tokens of ``text``."""
     return _fallback_tokenize(text)
+
+
+def get_tokenizer() -> Callable[[str], List[str]]:
+    """The tokenizer the vocabulary uses (``tokenize``)."""
+    return tokenize

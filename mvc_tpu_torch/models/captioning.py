@@ -41,12 +41,9 @@ from mvc_tpu_torch.models import reconstructor as rec
 from mvc_tpu_torch.models import rnn
 from mvc_tpu_torch.ops import quant, sharded
 from mvc_tpu_torch.ops.beam import beam_decode
-from mvc_tpu_torch.ops.beam import max_frames as beam_max_frames
 from mvc_tpu_torch.ops.beam import max_width as beam_max_width
 from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode
-from mvc_tpu_torch.ops.dual_greedy import max_frames as dual_greedy_max_frames
 from mvc_tpu_torch.ops.greedy import greedy_decode
-from mvc_tpu_torch.ops.greedy import max_frames as greedy_max_frames
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -137,12 +134,6 @@ def captions_from_tokens(vocab, tokens) -> List[str]:
         tokens = tokens.cpu().numpy()
     tokens = np.asarray(tokens)
     return [vocab.decode_indexes(row[1:]) for row in tokens]
-
-
-def _weight_shapes(decoder):
-    """A decoder tree whose quantized weights stand as their int8 payload:
-    the shapes the kernels' limits are read from."""
-    return quant.map_quantized(decoder, lambda w: w["q"])
 
 
 def _reconstruct(params, cfg: ReconstructorConfig, hiddens, outputs, captions, t_local: int,
@@ -304,14 +295,12 @@ class AVCaptioning:
                                      beam_width, feat_mask)
         return captions_from_tokens(vocab, tokens)
 
-    def max_frames(self, params, batch: int, mode: str = "direct", beam_width: int = 5) -> int:
-        """The largest T the card's kernel for ``mode`` takes at this model's
-        widths and ``batch`` clips (``greedy.cu`` or ``beam.cu``); the widths
-        of a quantized tree are read from its int8 payload."""
-        decoder = _weight_shapes(params["decoder"])
-        if mode == "beam":
-            return beam_max_frames([decoder], (self.decoder_config.rnn_type,), batch, beam_width)
-        return greedy_max_frames(decoder, self.decoder_config.rnn_type, batch)
+    def max_frames(self, params, batch: int, mode: str = "direct",
+                   beam_width: int = 5) -> Optional[int]:
+        """None: the kernels (``greedy.cu``, ``beam.cu``) take a clip of any
+        length, as the CPU path does."""
+        del params, batch, mode, beam_width
+        return None
 
     def max_beam_width(self) -> int:
         """The widest beam the card's ``beam.cu`` takes."""
@@ -455,15 +444,18 @@ class AVCaptioningDual:
         return self._beam_tokens(params, audio, visual, max_caption_len, beam_alpha,
                                  beam_width, feat_mask)
 
-    def max_frames(self, params, batch: int, mode: str = "direct", beam_width: int = 5) -> int:
-        """The largest T the card's kernel for ``mode`` takes at this model's
-        widths and ``batch`` clips (``dual_greedy.cu`` or ``beam.cu``); the
-        widths of a quantized tree are read from its int8 payload."""
-        decoders = [_weight_shapes(params["v_decoder"]), _weight_shapes(params["a_decoder"])]
-        rnn_types = (self.v_config.rnn_type, self.a_config.rnn_type)
-        if mode == "beam":
-            return beam_max_frames(decoders, rnn_types, batch, beam_width)
-        return dual_greedy_max_frames(decoders, rnn_types, batch)
+    def predict(self, params, vocab, audio, visual, max_caption_len=30, mode="direct",
+                beam_alpha=0.0, beam_width=5, feat_mask=None) -> List[str]:
+        tokens = self.predict_tokens(params, audio, visual, max_caption_len, mode, beam_alpha,
+                                     beam_width, feat_mask)
+        return captions_from_tokens(vocab, tokens)
+
+    def max_frames(self, params, batch: int, mode: str = "direct",
+                   beam_width: int = 5) -> Optional[int]:
+        """None: the kernels (``dual_greedy.cu``, ``beam.cu``) take a clip of
+        any length, as the CPU path does."""
+        del params, batch, mode, beam_width
+        return None
 
     def max_beam_width(self) -> int:
         """The widest beam the card's ``beam.cu`` takes."""

@@ -108,6 +108,11 @@ def decoder_step(params, cfg: DecoderConfig, prev_tokens: torch.Tensor, state,
     return collectives.log_softmax(logits, shards), new_state, weights
 
 
+def greedy_tokens(outputs: torch.Tensor) -> torch.Tensor:
+    """[L, B, V] log-probs -> [B, L] argmax tokens (lowest index on ties)."""
+    return torch.argmax(outputs, dim=2).T
+
+
 def decode_greedy_tokens(params, cfg: DecoderConfig, feats: torch.Tensor,
                          max_caption_len: int = 30, feat_mask: Optional[torch.Tensor] = None,
                          dtype=torch.float32, stop_at_all_eos: bool = False) -> torch.Tensor:

@@ -19,12 +19,24 @@ def wmat(w: torch.Tensor, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
+def init_lstm(gen: torch.Generator, in_size: int, hidden_size: int, dtype=torch.float32,
+              device="cpu"):
+    """An LSTM's weights and biases (4 gates) drawn from ``gen``."""
+    return rnn_params(gen, in_size, hidden_size, 4, dtype, device)
+
+
+def init_gru(gen: torch.Generator, in_size: int, hidden_size: int, dtype=torch.float32,
+             device="cpu"):
+    """A GRU's weights and biases (3 gates) drawn from ``gen``."""
+    return rnn_params(gen, in_size, hidden_size, 3, dtype, device)
+
+
 def init_rnn(gen, rnn_type: str, in_size: int, hidden_size: int,
              dtype=torch.float32, device="cpu"):
     if rnn_type not in ("LSTM", "GRU"):
         raise ValueError(f"rnn_type must be LSTM or GRU, got {rnn_type}")
-    n_gates = 4 if rnn_type == "LSTM" else 3
-    return rnn_params(gen, in_size, hidden_size, n_gates, dtype, device)
+    init = init_lstm if rnn_type == "LSTM" else init_gru
+    return init(gen, in_size, hidden_size, dtype, device)
 
 
 def lstm_step(params, x: torch.Tensor, state):

@@ -27,7 +27,6 @@ from mvc_tpu_torch.ops._gates import apply_gates
 MAX_SMEM_BYTES = 232448          # dynamic shared memory a Hopper block may opt into
                                  # (csrc/decode_common.cuh: SMEM_LIMIT)
 NEG = -1e30                      # masked attention energy, as the TPU kernels
-MAX_FRAMES_SEARCH = 1 << 16      # max_frames searches T up to here
 N_MARKS, TIMER_HEAD = 8, 4       # the greedy kernels' phase timers (csrc/greedy_common.cuh)
 CELLS = {"LSTM": 0, "GRU": 1}
 
@@ -189,8 +188,15 @@ def stream_plan(decoders, V: int, weight_bytes: int):
 
 def greedy_layout(decoders, T: int, V: int) -> dict:
     """Python replica of ``greedy_common.cuh: layout``: offsets (floats),
-    ring stages and the bytes a block needs (``TOO_LARGE``-like 1 << 40 for
-    shapes the kernel cannot take)."""
+    ring stages, whether the score rows live in the global workspace
+    (``att_global``: when the layout does not fit with them) and the bytes
+    a block needs (``TOO_LARGE``-like 1 << 40 for shapes the kernel cannot
+    take)."""
+    L = _greedy_layout_with(decoders, T, V, att_global=False)
+    return L if L["bytes"] <= MAX_SMEM_BYTES else _greedy_layout_with(decoders, T, V, True)
+
+
+def _greedy_layout_with(decoders, T: int, V: int, att_global: bool) -> dict:
     S = 1 if len(decoders) == 1 else len(decoders) + 1
     r4 = lambda x: _round(x, 4)
     o, pq, pg, pv, gru, ok, L = 0, 0, 0, 0, False, True, {}
@@ -198,7 +204,8 @@ def greedy_layout(decoders, T: int, V: int) -> dict:
         s = stream_dims(dec["H"], dec["A"], dec["E"], dec["F"], dec["cell"], dec["factored"], V)
         ok = ok and s["ncq"] <= CHUNK and s["ncg"] <= CHUNK
         for name, size in (("h", ROWS * s["Hp"]), ("hs", ROWS * s["U"]), ("c", ROWS * s["U"]),
-                           ("x", ROWS * s["Kxp"]), ("q", dec["A"]), ("att", ROWS * T),
+                           ("x", ROWS * s["Kxp"]), ("q", dec["A"]),
+                           ("att", 0 if att_global else ROWS * T),
                            ("ps", ROWS * s["ncg"] if dec["factored"] else 0)):
             L[f"{name}{d}"] = o
             o = r4(o + size)
@@ -219,6 +226,7 @@ def greedy_layout(decoders, T: int, V: int) -> dict:
     fixed = 4 * o
     L["stages"] = min(MAX_STAGES, max(MIN_STAGES, (MAX_SMEM_BYTES - fixed) // STAGE_BYTES
                                       if fixed < MAX_SMEM_BYTES else 0))
+    L["att_global"] = att_global
     L["bytes"] = fixed + L["stages"] * STAGE_BYTES if ok else 1 << 40
     return L
 
@@ -349,15 +357,17 @@ def fill_decoder_args(a: DecoderArgs, p: dict) -> None:
 
 
 def library(name: str, args_type, n_extra: int = 0):
-    """The loaded ``csrc/<name>.cu`` with its three C functions typed:
-    ``<name>_smem_bytes(args, *extra)``, ``<name>_launch(args, weight_bf16,
-    *extra, stream)`` and ``<name>_error_string``; ``extra`` is ``n_extra``
-    C ints (the beam kernel's row tile)."""
+    """The loaded ``csrc/<name>.cu`` with its C functions typed:
+    ``<name>_smem_bytes(args, *extra)``, ``<name>_workspace_floats(args,
+    *extra)``, ``<name>_launch(args, weight_bf16, *extra, stream)`` and
+    ``<name>_error_string``; ``extra`` is ``n_extra`` C ints (the beam
+    kernel's row tile)."""
     lib = _build.load(name)
     if not getattr(lib, "_mvc_bound", False):
         extra = [ctypes.c_int] * n_extra
-        smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes, smem.restype = [ctypes.POINTER(args_type)] + extra, ctypes.c_size_t
+        for fn in ("smem_bytes", "workspace_floats"):
+            f = getattr(lib, f"{name}_{fn}")
+            f.argtypes, f.restype = [ctypes.POINTER(args_type)] + extra, ctypes.c_size_t
         launch_fn = getattr(lib, f"{name}_launch")
         launch_fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_int] + extra + [ctypes.c_void_p]
         launch_fn.restype = ctypes.c_int
@@ -372,16 +382,29 @@ def library(name: str, args_type, n_extra: int = 0):
     return lib
 
 
+def workspace(name: str, lib, args, device, *extra: int):
+    """The global workspace a launch of ``args`` needs (the score rows of a
+    clip too long for shared memory, ...), allocated on ``device`` and set
+    as ``args.ws``; None when the kernel needs none.  It must outlive the
+    launch's enqueue (PyTorch's allocator orders its reuse on the stream)."""
+    n = getattr(lib, f"{name}_workspace_floats")(ctypes.byref(args), *extra)
+    ws = torch.empty(n, dtype=torch.float32, device=device) if n else None
+    args.ws = ws.data_ptr() if ws is not None else None
+    return ws
+
+
 def launch(name: str, lib, args, weight_dtype, device, *extra: int) -> None:
     """One launch of ``csrc/<name>.cu`` on the current stream of ``device``
-    (``extra``: the C ints ``library`` typed); raises ValueError when a
-    block would need more shared memory than the card gives one,
-    RuntimeError when the launch is refused."""
+    (``extra``: the C ints ``library`` typed), with the global workspace it
+    asks for; raises ValueError when a block would need more shared memory
+    than the card gives one (widths the layout cannot take, or a row tile
+    forced where it does not fit), RuntimeError when the launch is refused."""
     smem = getattr(lib, f"{name}_smem_bytes")(ctypes.byref(args), *extra)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"T={args.T} frames needs {smem} bytes of shared memory per block at these "
-            f"widths; the kernel's limit is {MAX_SMEM_BYTES} (cut the clip or split it)")
+            f"the kernel needs {smem} bytes of shared memory per block at these widths "
+            f"(T={args.T}); a block takes at most {MAX_SMEM_BYTES}")
+    _ws = workspace(name, lib, args, device, *extra)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, f"{name}_launch")(ctypes.byref(args),
                                           int(weight_dtype == torch.bfloat16), *extra, stream)
@@ -407,6 +430,7 @@ def launch_timed(name: str, lib, args, weight_dtype, device) -> torch.Tensor:
     ``N_MARKS`` clock64 marks per step).  For measurement only."""
     timer = torch.zeros(TIMER_HEAD + (args.max_len - 1) * N_MARKS, dtype=torch.int64,
                         device=device)
+    _ws = workspace(name, lib, args, device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, f"{name}_launch_timed")(ctypes.byref(args),
                                                 int(weight_dtype == torch.bfloat16),
@@ -415,31 +439,6 @@ def launch_timed(name: str, lib, args, weight_dtype, device) -> torch.Tensor:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} timed kernel launch failed: {msg} ({err})")
     return timer
-
-
-def max_frames(smem_fn, args, decoder_params, rnn_types, batch: int, *extra: int) -> int:
-    """The largest T whose block fits the card's shared memory
-    (``MAX_SMEM_BYTES``), asked of the kernel's own ``<name>_smem_bytes``
-    at the decoders' widths (F is read from ``wi``) and a batch of
-    ``batch`` clips, which sets each decoder's branch (factored or direct)
-    at every T; 0 when no T fits.  ``args`` is the kernel's argument block
-    with its other fields (V, W, ...) set; only its dims are read."""
-    dims = []
-    for p, cell in zip(decoder_params, rnn_types):
-        E = p["embedding"]["table"].shape[1]
-        K, GH = p["rnn"]["wi"].shape
-        dims.append((K - E, GH // (4 if cell == "LSTM" else 3), p["attention"]["W"].shape[1], E,
-                     CELLS[cell], GH))
-    best = 0
-    for T in range(1, MAX_FRAMES_SEARCH + 1):
-        for a, (F, H, A, E, cell, GH) in zip(args.dec, dims):
-            a.F, a.H, a.A, a.E, a.cell = F, H, A, E, cell
-            a.factored = int(_use_factored(batch * T, F, GH))
-        args.T = T
-        if smem_fn(ctypes.byref(args), *extra) > MAX_SMEM_BYTES:
-            break
-        best = T
-    return best
 
 
 def check_greedy(decoder_params, feats_list, feat_mask, max_caption_len, weight_dtype,
@@ -507,7 +506,8 @@ def greedy_args_type(n_decoders: int):
         ("dec", DecoderArgs * n_decoders), ("st", StreamArgs * n_decoders),
         ("mask", ctypes.c_void_p),
         ("tokens", ctypes.c_void_p)] + [
-        (n, ctypes.c_int) for n in ("B", "T", "max_len", "V", "sos_id")]})
+        (n, ctypes.c_int) for n in ("B", "T", "max_len", "V", "sos_id")] + [
+        ("ws", ctypes.c_void_p)]})
 
 
 def step_cells(prep, mask, hs, cs, prevs, weight_dtype, rows_per_clip: int = 1):

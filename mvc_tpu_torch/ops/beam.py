@@ -17,11 +17,15 @@ The keys ``feats @ U`` and the factored slab ``P = feats @ wi_ctx`` stay
 ``beam_decode`` launches the kernel for CUDA tensors and takes
 ``beam_decode_reference`` only for CPU tensors.
 
-The kernel runs on a tile of 15 rows (three clips at W=5) or 8 rows (one
-clip at W=5); it picks the 15-row tile when that fits a block's shared
-memory and holds more whole clips, which at the serving widths is every
-frame bucket up to T=147 (dual model) or T=1618 (single model), and the
-8-row tile for longer clips (``csrc/beam.cu:tile_rows``).
+The kernel runs on a tile of 15 rows (three clips at W=5), 8 rows (one
+clip at W=5) or 16 rows (one clip of W=9..16).  For W <= 8 it picks the
+15-row tile when that fits a block's shared memory and holds more whole
+clips, which at the serving widths is every frame bucket up to T=147
+(dual model) or T=1618 (single model), and the 8-row tile for longer
+clips; above T=1842 (dual) or T=5009 (single) the 8-row tile keeps its
+score rows in a global workspace the call allocates.  W=9..16 takes the
+16-row tile, whose score rows, logits and regather staging always live
+in the workspace (``csrc/beam.cu:tile_of``).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from mvc_tpu_torch.config import EOS_ID, SOS_ID
 from mvc_tpu_torch.ops import _decode_common as _dc
 
 NEG_INF = -1e9                   # dead-beam start score, as models/beam.py
-TILES = (15, 8)                  # the kernel's row tiles; rows=0 lets it pick
+TILES = (15, 8, 16)              # the kernel's row tiles; rows=0 lets it pick
 
 
 def _check(decoder_params, feats_list, feat_mask, max_caption_len, beam_width,
@@ -153,7 +157,7 @@ class _BeamArgs(ctypes.Structure):
     _fields_ = [("dec", _dc.DecoderArgs * 2), ("mask", ctypes.c_void_p),
                 ("tokens", ctypes.c_void_p), ("steps", ctypes.c_void_p)] + [
         (n, ctypes.c_int) for n in ("B", "T", "V", "W", "Lh", "n_dec", "sos_id", "eos_id")] + [
-        ("alpha", ctypes.c_float), ("inv6a", ctypes.c_float)]
+        ("alpha", ctypes.c_float), ("inv6a", ctypes.c_float), ("ws", ctypes.c_void_p)]
 
 
 def _library():
@@ -171,8 +175,9 @@ def _library():
 def _launch(args: _BeamArgs, weight_dtype, device, rows: int = 0) -> None:
     """One kernel launch on the current stream of ``device`` with a
     ``rows``-row tile (0: the kernel's choice by shape; else one of
-    ``TILES``); raises ValueError if the tile does not fit a block's shared
-    memory, RuntimeError if the launch is refused.  The tensors behind
+    ``TILES``) and the global workspace it asks for; raises ValueError if
+    the tile does not fit a block's shared memory, RuntimeError if the
+    launch is refused (a beam wider than the tile takes).  The tensors behind
     ``args`` must outlive the call's enqueue (PyTorch's allocator orders
     their reuse on the same stream)."""
     if rows not in (0,) + TILES:
@@ -216,17 +221,6 @@ def max_width() -> int:
     return int(_library().beam_max_width())
 
 
-def max_frames(decoder_params, rnn_types=("LSTM", "LSTM"), batch: int = 64,
-               beam_width: int = 5) -> int:
-    """The largest T the kernel takes for these 1 or 2 decoders at
-    ``batch`` clips of ``beam_width`` beams, on the row tile it picks, by its
-    own shared-memory need; builds the kernel on first use."""
-    args = _BeamArgs()
-    args.V = decoder_params[0]["embedding"]["table"].shape[0]
-    args.B, args.W, args.Lh, args.n_dec = batch, int(beam_width), 2, len(decoder_params)
-    return _dc.max_frames(_library().beam_smem_bytes, args, decoder_params, rnn_types, batch, 0)
-
-
 def beam_decode(
     decoder_params: Sequence[dict],
     feats_list: Sequence[torch.Tensor],
@@ -246,10 +240,9 @@ def beam_decode(
     F/H/A/E); ``feat_mask``: [B, T] bool.  CUDA tensors launch the kernel on
     the current stream (asynchronously; ``beam_decode.launches`` counts
     launches, under a lock); CPU tensors take the plain
-    version.  Anything the kernel cannot take raises ValueError: a beam
-    wider than 8 or a clip longer than a block's shared memory holds with
-    the 8-row tile (T=1842 at the dual model's widths; the plain version
-    has neither limit)."""
+    version.  Anything the kernel cannot take raises ValueError, such as a
+    beam wider than 16 (``max_width``; the plain version takes any W <= V).
+    A clip of any length runs."""
     device = feats_list[0].device
     if device.type == "cpu":
         return beam_decode_reference(decoder_params, feats_list, feat_mask, max_caption_len,

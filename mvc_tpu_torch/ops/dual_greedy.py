@@ -65,17 +65,6 @@ def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_
                                   n_decoders=2)
 
 
-def max_frames(decoder_params, rnn_types=("LSTM", "LSTM"), batch: int = 64) -> int:
-    """The largest T the kernel takes for these decoders (their widths, and
-    the branch each takes at ``batch`` clips), by the kernel's own
-    shared-memory need; builds the kernel on first use."""
-    args = _DualGreedyArgs()
-    args.V = decoder_params[0]["embedding"]["table"].shape[0]
-    args.B, args.max_len = batch, 2
-    return _dc.max_frames(_library().dual_greedy_smem_bytes, args, decoder_params, rnn_types,
-                          batch)
-
-
 def dual_greedy_decode(
     decoder_params: Sequence[dict],
     feats_list: Sequence[torch.Tensor],
@@ -92,10 +81,9 @@ def dual_greedy_decode(
     CUDA tensors launch the kernel on the current stream (asynchronously;
     ``dual_greedy_decode.launches`` counts launches, under a lock); CPU
     tensors take the plain version.  Anything the kernel cannot take
-    raises, including a clip longer than the shared memory of a block
-    holds: at the serving widths (H=512, A=256, V=4000) the kernel takes
-    T <= 663 frames and raises ValueError above (the plain version has no
-    limit)."""
+    raises.  A clip of any length runs: above T=663 at the serving widths
+    (H=512, A=256, V=4000) the score rows live in a global workspace the
+    call allocates."""
     device = feats_list[0].device
     if device.type == "cpu":
         return dual_greedy_decode_reference(decoder_params, feats_list, feat_mask,

@@ -77,17 +77,6 @@ def prepare_kernel_call(decoder_params, feats, feat_mask=None, max_caption_len=3
                                   n_decoders=1)
 
 
-def max_frames(decoder_params: dict, rnn_type: str = "LSTM", batch: int = 64) -> int:
-    """The largest T the kernel takes for this decoder (its widths, and the
-    branch it takes at ``batch`` clips), by the kernel's own shared-memory
-    need; builds the kernel on first use."""
-    args = _GreedyArgs()
-    args.V = decoder_params["embedding"]["table"].shape[0]
-    args.B, args.max_len = batch, 2
-    return _dc.max_frames(_library().greedy_smem_bytes, args, _one(decoder_params),
-                          (rnn_type,), batch)
-
-
 def greedy_decode(
     decoder_params: dict,
     feats: torch.Tensor,
@@ -104,10 +93,9 @@ def greedy_decode(
     ``feat_mask``: [B, T] bool.  CUDA tensors launch the kernel on the
     current stream (asynchronously; ``greedy_decode.launches`` counts
     launches, under a lock); CPU tensors take the plain
-    version.  Anything the kernel cannot take raises, including a clip
-    longer than the shared memory of a block holds: at the single model's
-    widths (F=2176, H=512, A=256, V=4000) the kernel takes T <= 3230 frames
-    and raises ValueError above (the plain version has no limit)."""
+    version.  Anything the kernel cannot take raises.  A clip of any length
+    runs: above T=3230 at the single model's widths (F=2176, H=512, A=256,
+    V=4000) the score rows live in a global workspace the call allocates."""
     if feats.device.type == "cpu":
         return greedy_decode_reference(decoder_params, feats, feat_mask, max_caption_len,
                                        weight_dtype, rnn_type, sos_id)

@@ -105,7 +105,7 @@ def _rank_main(fn, rank: int, world: int, rdzv_dir: str, backend, device, timeou
 
     # a rank still running near the deadline prints where it stands
     faulthandler.dump_traceback_later(max(1.0, timeout_s - 10.0), exit=False)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))   # the ranks share the host
+    torch.set_num_threads(_rank_threads(world))
     out = os.path.join(rdzv_dir, f"rank{rank}.pkl")
     try:
         distributed.initialize(f"file://{os.path.join(rdzv_dir, 'rdzv')}", world, rank,
@@ -119,14 +119,24 @@ def _rank_main(fn, rank: int, world: int, rdzv_dir: str, backend, device, timeou
     distributed.shutdown()
 
 
+def _rank_threads(world: int) -> int:
+    """Torch threads a spawned rank takes: the host's cores shared by the
+    ``world`` ranks and, under pytest-xdist, by the other workers' processes
+    (``PYTEST_XDIST_WORKER_COUNT``), which would otherwise oversubscribe
+    the host."""
+    sharers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, (os.cpu_count() or 1) // (world * sharers))
+
+
 def spawn_ranks(fn: Callable, world: int, rdzv_dir: str, args: Sequence = (),
                 backend: Optional[str] = None, device=None,
                 timeout_s: float = 120.0) -> List[object]:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
     joined to one process group (``parallel.distributed.initialize`` over
     ``file://<rdzv_dir>/rdzv``, with ``backend`` and ``device``, every
-    collective bounded by ``timeout_s``).  ``fn`` and ``args`` must pickle
-    (``fn`` at module level).  Returns the ranks' results in rank order;
+    collective bounded by ``timeout_s``), each running its share of the
+    host's cores as torch threads (``_rank_threads``).  ``fn`` and ``args``
+    must pickle (``fn`` at module level).  Returns the ranks' results in rank order;
     raises with the rank's traceback when one fails, and kills every rank
     still running ``timeout_s`` seconds after the start."""
     rdzv_dir = os.path.abspath(rdzv_dir)

@@ -7,12 +7,12 @@
   whether it shared a batch or rode alone.
 - **Model limits.** On the card the service asks the model, at
   construction, for the largest ``t_pad`` it takes (``model.max_frames``:
-  the RNN captioners' kernel by its shared memory, the transformer's
-  positional encoding); ``submit`` raises ValueError for a longer clip, so
-  it fails alone instead of failing the batch it would have joined.  A
-  beam wider than the model takes (``model.max_beam_width``: 8 for the
-  RNN captioners' beam kernel) fails construction.  The CPU path has
-  neither limit.
+  None for the RNN captioners, whose kernels take any clip length; the
+  transformer's positional encoding); ``submit`` raises ValueError for a
+  longer clip, so it fails alone instead of failing the batch it would
+  have joined.  A beam wider than the model takes
+  (``model.max_beam_width``: 16 for the RNN captioners' beam kernel)
+  fails construction.  The CPU path has neither limit.
 - **One worker, one card.** A background thread collects a batch (it waits
   ``max_wait_ms`` after the first queued request, or until ``max_batch``
   are in hand, filling in priority then arrival order), copies it to the
@@ -158,8 +158,8 @@ class CaptionService:
         self.model = model
         self.params = _tree_to(params, self.device)
         self.vocab = vocab
-        # the card's kernels bound the beam width and the clip length; an
-        # over-limit clip fails alone at submit (the CPU path has no limit)
+        # the card's models may bound the beam width and the clip length;
+        # an over-limit clip fails alone at submit (the CPU path has no limit)
         if self.config.mode == "beam":
             w_max = self._kernel_width_limit()
             if w_max is not None and self.config.beam_width > w_max:
@@ -263,8 +263,7 @@ class CaptionService:
 
     def _kernel_frame_limit(self) -> Optional[int]:
         """The largest padded clip the model takes on the card for this mode
-        and batch (the RNN captioners' kernels: from their own
-        shared-memory need); None on the CPU."""
+        and batch (None: any); None on the CPU."""
         if self.device.type != "cuda":
             return None
         cfg = self.config

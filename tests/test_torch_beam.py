@@ -286,8 +286,9 @@ def test_kernel_constants_match_the_wrappers():
         return int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))
 
     assert const(common, "SMEM_LIMIT") == _dc.MAX_SMEM_BYTES
-    assert (const(beam_src, "WIDE_ROWS"), const(common, "ROWS")) == TILES
-    assert const(beam_src, "MAX_WIDTH") == 8
+    assert (const(beam_src, "WIDE_ROWS"), const(common, "ROWS"),
+            const(beam_src, "BEAM16_ROWS")) == TILES
+    assert const(beam_src, "MAX_WIDTH") == 16
 
 
 def test_beam_wrapper_rejects_what_it_cannot_take():

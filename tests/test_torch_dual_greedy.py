@@ -175,7 +175,7 @@ def test_stream_constants_and_layout_match_the_kernel():
     regions = re.findall(r"\bL\.(\w+)(?:\[d\])? = o[;+ ]", src)
     replica = dc.greedy_layout([dict(H=16, A=8, E=8, F=24, cell="GRU", factored=True)], 4, V)
     order = list(dict.fromkeys(re.sub(r"\d+$", "", k) for k in replica))
-    assert regions == [k for k in order if k not in ("pv", "stages", "bytes")]
+    assert regions == [k for k in order if k not in ("pv", "stages", "att_global", "bytes")]
 
     vis = dict(H=512, A=256, E=300, F=2048, cell="LSTM", factored=True)
     aud = dict(H=512, A=256, E=300, F=128, cell="LSTM", factored=False)
@@ -187,6 +187,12 @@ def test_stream_constants_and_layout_match_the_kernel():
                 assert sum(stages) == Kp * ncp * wb, name
         lay = dc.greedy_layout(decs, 16, 4000)
         assert lay["bytes"] <= dc.MAX_SMEM_BYTES and lay["stages"] >= 3
+        assert not lay["att_global"]
         assert dc.greedy_layout(decs, 256, 4000)["bytes"] <= dc.MAX_SMEM_BYTES
+        # a clip of any length: the score rows leave shared memory, the ring
+        # takes the room back
+        long = dc.greedy_layout(decs, 1 << 15, 4000)
+        assert long["att_global"] and long["bytes"] <= dc.MAX_SMEM_BYTES
+        assert long["stages"] >= lay["stages"]
     dual_bytes = sum(sum(st) for *_, st in dc.stream_plan([vis, aud], 4000, 4))
     assert round(dual_bytes / 1e6, 2) == 4.00                       # per block and step

@@ -59,7 +59,7 @@ class _LazyJax:
 J = _LazyJax()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-RANK_TIMEOUT_S = 60.0
+RANK_TIMEOUT_S = 120.0
 
 
 def _rel(got, want):

@@ -23,7 +23,6 @@ from mvc_tpu.models.decoder import cast_params_for_decode as jax_cast
 from mvc_tpu.ops import quant as jquant
 from mvc_tpu_torch.config import DecoderConfig as TDecoderConfig
 from mvc_tpu_torch.models import AVCaptioning, AVCaptioningDual
-from mvc_tpu_torch.models import captioning as tcaptioning
 from mvc_tpu_torch.models.decoder import cast_params_for_decode
 from mvc_tpu_torch.ops import quant
 from mvc_tpu_torch.utils.jax_weights import from_numpy_tree, to_numpy_tree
@@ -138,25 +137,14 @@ def test_int8_tokens_equal_the_jax_int8_tokens(which, mode, width):
     np.testing.assert_array_equal(got, again)
 
 
-def test_max_frames_reads_the_widths_of_a_quantized_tree(monkeypatch):
-    """The kernels' limits take the same widths from a quantized tree as
-    from the float one (their shared-memory query reads shapes only)."""
+def test_max_frames_reads_the_widths_of_a_quantized_tree():
+    """A quantized tree has the float one's frame limit: none, since the
+    kernels take a clip of any length."""
     _, tm, params = _dual()
     _, sm, sparams = _single()
-    seen = []
-
-    def record(decoders, *a):
-        seen.append([tuple(d["rnn"]["wi"].shape) for d in decoders])
-        return 7
-
-    monkeypatch.setattr(tcaptioning, "dual_greedy_max_frames", record)
-    monkeypatch.setattr(tcaptioning, "beam_max_frames", record)
-    monkeypatch.setattr(tcaptioning, "greedy_max_frames",
-                        lambda d, *a: record([d]))
     tp = from_numpy_tree(params)
     sp = from_numpy_tree(sparams)
     for model, p in ((tm, tp), (sm, sp)):
         for mode in ("direct", "beam"):
-            assert model.max_frames(p, 64, mode) == 7
-            assert model.max_frames(quant.quantize_model_params(p), 64, mode) == 7
-    assert seen[0::2] == seen[1::2] and len(seen) == 8
+            assert model.max_frames(p, 64, mode) is None
+            assert model.max_frames(quant.quantize_model_params(p), 64, mode) is None

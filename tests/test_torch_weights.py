@@ -93,7 +93,8 @@ def test_own_copies_match_jax_package(tmp_path):
     for name in ("VISUAL_DECODER_CONFIG", "AUDIO_DECODER_CONFIG", "SINGLE_DECODER_CONFIG"):
         assert (dataclasses.asdict(getattr(tcfg, name))
                 == dataclasses.asdict(getattr(jcfg, name))), name
-    for name in ("ReconstructorConfig", "TrainerConfig", "ModelConfig", "MeshConfig"):
+    for name in ("ReconstructorConfig", "TrainerConfig", "ModelConfig", "MeshConfig",
+                 "ExperimentConfig"):
         assert (dataclasses.asdict(getattr(tcfg, name)())
                 == dataclasses.asdict(getattr(jcfg, name)())), name
     for sp in (1, 2):
