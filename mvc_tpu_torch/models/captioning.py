@@ -44,6 +44,7 @@ from mvc_tpu_torch.ops.beam import beam_decode
 from mvc_tpu_torch.ops.beam import max_width as beam_max_width
 from mvc_tpu_torch.ops.dual_greedy import dual_greedy_decode
 from mvc_tpu_torch.ops.greedy import greedy_decode
+from mvc_tpu_torch.utils import tracing
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -230,6 +231,7 @@ class AVCaptioning:
                               None, captions, features.shape[1], self.dtype, shards)
         return ((hiddens,), (params["decoder"]["out"],), *self._split(recons, audio.shape[2]))
 
+    @tracing.traced("model.predict_tokens")
     def predict_tokens(self, params, audio: torch.Tensor, visual: torch.Tensor,
                        max_caption_len: int = 30, mode: str = "direct",
                        beam_alpha: float = 0.0, beam_width: int = 5,
@@ -392,6 +394,7 @@ class AVCaptioningDual:
         outs = (params["v_decoder"]["out"], params["a_decoder"]["out"])
         return (v_h, a_h), outs, a_rec, v_rec
 
+    @tracing.traced("model.predict_tokens")
     def predict_tokens(self, params, audio: torch.Tensor, visual: torch.Tensor,
                        max_caption_len: int = 30, mode: str = "direct",
                        beam_alpha: float = 0.0, beam_width: int = 5,

@@ -10,6 +10,12 @@ XLA: the attention keys ``feats @ U`` and, for a factored decoder, the slab
 ``P = feats @ wi_ctx`` (``_use_factored``), both rounded to the weight
 dtype (``mvc_tpu/ops/pallas_dual_greedy.py:369-416``,
 ``mvc_tpu/ops/pallas_beam.py:694-729``).
+
+The host time of a kernel call is two spans (``utils/tracing.py``):
+``decode.prepare`` (the checks, the mask, the operands' repack and the
+keys/P matmuls: ``greedy_kernel_call`` and the beam's
+``prepare_kernel_call``, decorated with ``traced_prepare``) and
+``decode.launch`` (``launch``).
 """
 
 from __future__ import annotations
@@ -23,12 +29,15 @@ import torch
 
 from mvc_tpu_torch.ops import _build
 from mvc_tpu_torch.ops._gates import apply_gates
+from mvc_tpu_torch.utils import tracing
 
 MAX_SMEM_BYTES = 232448          # dynamic shared memory a Hopper block may opt into
                                  # (csrc/decode_common.cuh: SMEM_LIMIT)
 NEG = -1e30                      # masked attention energy, as the TPU kernels
 N_MARKS, TIMER_HEAD = 8, 4       # the greedy kernels' phase timers (csrc/greedy_common.cuh)
 CELLS = {"LSTM": 0, "GRU": 1}
+
+traced_prepare = tracing.traced("decode.prepare")
 
 
 def _use_factored(BT: int, F: int, H4: int) -> bool:
@@ -393,6 +402,7 @@ def workspace(name: str, lib, args, device, *extra: int):
     return ws
 
 
+@tracing.traced("decode.launch")
 def launch(name: str, lib, args, weight_dtype, device, *extra: int) -> None:
     """One launch of ``csrc/<name>.cu`` on the current stream of ``device``
     (``extra``: the C ints ``library`` typed), with the global workspace it
@@ -478,6 +488,7 @@ def greedy_reference(decoder_params, feats_list, feat_mask, max_caption_len, wei
     return tokens
 
 
+@traced_prepare
 def greedy_kernel_call(args_type, decoder_params, feats_list, feat_mask, max_caption_len,
                        weight_dtype, rnn_types, sos_id, n_decoders: int):
     """Checks and the work outside a greedy kernel for CUDA tensors.

@@ -186,6 +186,7 @@ def _launch(args: _BeamArgs, weight_dtype, device, rows: int = 0) -> None:
     _dc.count_launch(beam_decode)
 
 
+@_dc.traced_prepare
 def prepare_kernel_call(decoder_params, feats_list, feat_mask=None, max_caption_len=30,
                         beam_width=5, beam_alpha=0.0, weight_dtype=torch.float32,
                         rnn_types=("LSTM", "LSTM"), sos_id: int = SOS_ID,

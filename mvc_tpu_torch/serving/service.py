@@ -20,6 +20,15 @@
   CUDA stream.  A completer thread owns the sync (``.cpu()`` of the tokens),
   so batch k+1 is collected and launched while batch k runs, bounded by
   ``pipeline_depth``.
+- **Spans and counters.** While ``utils.tracing`` records, the worker
+  records ``service.collect`` and ``service.launch`` (children
+  ``service.pad``, ``service.h2d``, the model's ``model.predict_tokens``
+  and ``service.backpressure``, the wait for room in the completion
+  queue), the completer ``service.complete`` (child ``service.sync``, the
+  wait for the device), each span with its batch id, and each request
+  its ``service.queue`` wait with its request and batch ids.  ``stats()``
+  always counts the queue waits (``queue_wait_ms_p50``/``_p95``) and the
+  frames launched and the real ones among them.
 - **Overload.** With ``max_queue`` an arrival evicts a strictly lower
   priority request or is shed with ``ServiceOverloaded``; a request whose
   ``deadline_ms`` passes before it reaches a batch fails with
@@ -55,6 +64,7 @@ from mvc_tpu_torch.data.dataset import _bucket
 from mvc_tpu_torch.data.feature_cache import dequantize_int8, quantize_int8
 from mvc_tpu_torch.models.captioning import captions_from_tokens
 from mvc_tpu_torch.ops import sharded
+from mvc_tpu_torch.utils import tracing
 from mvc_tpu_torch.utils.device import resolve_device
 
 
@@ -99,7 +109,8 @@ class DeadlineExceeded(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("audio", "visual", "future", "t_submit", "priority", "seq", "deadline")
+    __slots__ = ("audio", "visual", "future", "t_submit", "t_submit_ns", "t_pop", "priority",
+                 "seq", "deadline")
 
     def __init__(self, audio: np.ndarray, visual: np.ndarray, priority: int = 0,
                  seq: int = 0, deadline_ms: Optional[float] = None):
@@ -107,6 +118,9 @@ class _Request:
         self.visual = visual
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
+        # the queue span's start (the recorder's clock), while spans are recorded
+        self.t_submit_ns = tracing.now() if tracing.enabled() else 0
+        self.t_pop = self.t_submit
         self.priority = int(priority)
         self.seq = seq
         self.deadline = self.t_submit + deadline_ms / 1e3 if deadline_ms is not None else None
@@ -174,8 +188,11 @@ class CaptionService:
         if mesh is not None:
             self._predict_extra["mesh"] = mesh
 
-        # priority queue: a plain list + condition (the bound keeps it small);
-        # best = min (priority, seq), victim = max
+        # priority queue: a plain list + condition; best = min (priority, seq),
+        # victim = max.  Each pop scans the list, so it costs the queue's
+        # length: with max_queue=None (cli.serve_captions) a backlog past the
+        # service's knee slows every pop, batches shrink and it collapses
+        # (PERF.md, Open questions)
         self._pending: List[_Request] = []
         self._qcond = threading.Condition()
         self._seq = 0
@@ -188,6 +205,10 @@ class CaptionService:
         self._n_requests = 0
         self._n_batches = 0
         self._n_rows = 0  # real (non-padding) rows launched
+        self._queue_waits = collections.deque(maxlen=self.config.latency_window)
+        self._frames_launched = 0  # max_batch * t_pad of each batch launched
+        self._frames_real = 0      # the clips' own frames among them
+        self._batch_id = 0         # the worker's batch counter (span ids)
         self._t_start = time.perf_counter()
         self._closed = False
         # bounded in-flight queue = backpressure on the batching worker
@@ -299,20 +320,26 @@ class CaptionService:
         """Zero the counters/latency window (e.g. right after warmup)."""
         with self._lock:
             self._latencies.clear()
+            self._queue_waits.clear()
             self._n_requests = self._n_batches = self._n_rows = 0
+            self._frames_launched = self._frames_real = 0
             self._t_start = time.perf_counter()
 
     def stats(self) -> Dict[str, object]:
         with self._lock:
             lat = sorted(self._latencies)
+            waits = sorted(self._queue_waits)
             n_requests, n_batches, n_rows = self._n_requests, self._n_batches, self._n_rows
+            frames_launched, frames_real = self._frames_launched, self._frames_real
             t_start = self._t_start
             t_pads = sorted(self._t_pads)
+        with self._qcond:
+            queue_depth = len(self._pending)
 
-        def pct(p: float) -> Optional[float]:
-            if not lat:
+        def pct(p: float, xs=lat) -> Optional[float]:
+            if not xs:
                 return None
-            return 1e3 * lat[min(len(lat) - 1, int(p * len(lat)))]
+            return 1e3 * xs[min(len(xs) - 1, int(p * len(xs)))]
 
         elapsed = time.perf_counter() - t_start
         return {
@@ -322,10 +349,17 @@ class CaptionService:
             "latency_ms_p50": pct(0.50),
             "latency_ms_p95": pct(0.95),
             "latency_ms_p99": pct(0.99),
+            # submit to the batch that took the request, over the same window
+            "queue_wait_ms_p50": pct(0.50, waits),
+            "queue_wait_ms_p95": pct(0.95, waits),
             "requests_per_s": n_requests / elapsed if elapsed > 0 else None,
             # padded frame counts launched so far (the JAX service's key name)
             "compiled_t_pads": t_pads,
-            "queue_depth": len(self._pending),
+            # frames launched (max_batch rows of t_pad each batch) and the
+            # clips' own frames among them; the rest is padding
+            "frames_launched": frames_launched,
+            "frames_real": frames_real,
+            "queue_depth": queue_depth,
             "shed": self._n_shed,
             "deadline_expired": self._n_expired,
             "mode": self.config.mode,
@@ -353,9 +387,10 @@ class CaptionService:
 
     # ---------------------------------------------------------------- worker
 
-    def _pop_best_locked(self) -> Optional[_Request]:
-        """Highest-priority (then oldest) live request; expired ones fail
-        with DeadlineExceeded and are skipped.  Caller holds _qcond."""
+    def _pop_best_locked(self, batch_id: int) -> Optional[_Request]:
+        """Highest-priority (then oldest) live request, stamped as taken by
+        batch ``batch_id``; expired ones fail with DeadlineExceeded and are
+        skipped.  Caller holds _qcond."""
         now = time.perf_counter()
         while self._pending:
             best = min(self._pending, key=lambda r: (r.priority, r.seq))
@@ -366,14 +401,18 @@ class CaptionService:
                 best.future.set_exception(DeadlineExceeded(
                     f"deadline elapsed after {1e3 * (now - best.t_submit):.1f} ms in queue"))
                 continue
+            best.t_pop = now
+            if best.t_submit_ns and tracing.enabled():
+                tracing.record("service.queue", best.t_submit_ns, tracing.now(),
+                               batch=batch_id, request=best.seq)
             return best
         return None
 
-    def _collect(self) -> Optional[List[_Request]]:
+    def _collect(self, batch_id: int) -> Optional[List[_Request]]:
         """Block for the first request, then window for more."""
         with self._qcond:
             while True:
-                first = self._pop_best_locked()
+                first = self._pop_best_locked(batch_id)
                 if first is not None:
                     break
                 if self._shutdown:
@@ -386,40 +425,47 @@ class CaptionService:
             if remaining <= 0:
                 break
             with self._qcond:
-                nxt = self._pop_best_locked()
+                nxt = self._pop_best_locked(batch_id)
                 if nxt is None:
                     if self._shutdown:
                         break
                     self._qcond.wait(timeout=remaining)
-                    nxt = self._pop_best_locked()
+                    nxt = self._pop_best_locked(batch_id)
             if nxt is None:
                 continue
             batch.append(nxt)
         return batch
 
-    def _launch(self, batch: List[_Request]) -> None:
+    def _launch(self, batch: List[_Request], batch_id: int) -> None:
         """Pad, copy to the device, launch (asynchronously on CUDA) and
         enqueue for completion."""
         cfg = self.config
-        t_pad = _bucket(max(r.visual.shape[0] for r in batch), cfg.frame_buckets)
-        audio = np.zeros((cfg.max_batch, t_pad, cfg.audio_dim), dtype=np.float32)
-        visual = np.zeros((cfg.max_batch, t_pad, cfg.visual_dim), dtype=np.float32)
-        feat_mask = np.zeros((cfg.max_batch, t_pad), dtype=bool)
-        for i, r in enumerate(batch):
-            t = r.visual.shape[0]
-            audio[i, :t] = r.audio
-            visual[i, :t] = r.visual
-            feat_mask[i, :t] = True
+        with tracing.span("service.pad", batch=batch_id):
+            t_pad = _bucket(max(r.visual.shape[0] for r in batch), cfg.frame_buckets)
+            audio = np.zeros((cfg.max_batch, t_pad, cfg.audio_dim), dtype=np.float32)
+            visual = np.zeros((cfg.max_batch, t_pad, cfg.visual_dim), dtype=np.float32)
+            feat_mask = np.zeros((cfg.max_batch, t_pad), dtype=bool)
+            for i, r in enumerate(batch):
+                t = r.visual.shape[0]
+                audio[i, :t] = r.audio
+                visual[i, :t] = r.visual
+                feat_mask[i, :t] = True
         with self._lock:
             self._t_pads.add(t_pad)
-        audio_d, visual_d = (self._to_device(x) for x in (audio, visual))
+            self._queue_waits.extend(r.t_pop - r.t_submit for r in batch)
+            self._frames_launched += cfg.max_batch * t_pad
+            self._frames_real += sum(r.visual.shape[0] for r in batch)
         dev = self.device
+        with tracing.span("service.h2d", batch=batch_id):
+            audio_d, visual_d = (self._to_device(x) for x in (audio, visual))
+            mask_d = torch.from_numpy(feat_mask).to(dev)
         tokens = self.model.predict_tokens(
             self.params, audio_d, visual_d,
             max_caption_len=cfg.max_caption_len, mode=cfg.mode,
             beam_alpha=cfg.beam_alpha, beam_width=cfg.beam_width,
-            feat_mask=torch.from_numpy(feat_mask).to(dev), **self._predict_extra)
-        self._completions.put((tokens, batch))
+            feat_mask=mask_d, **self._predict_extra)
+        with tracing.span("service.backpressure", batch=batch_id):
+            self._completions.put((tokens, batch, batch_id))
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """One padded feature batch through the configured wire format."""
@@ -432,9 +478,10 @@ class CaptionService:
             t = t.to(torch.bfloat16)
         return t.to(dev)
 
-    def _complete(self, tokens_dev: torch.Tensor, batch: List[_Request]) -> None:
+    def _complete(self, tokens_dev: torch.Tensor, batch: List[_Request], batch_id: int) -> None:
         n = len(batch)
-        tokens = tokens_dev.cpu()          # the sync point for this batch
+        with tracing.span("service.sync", batch=batch_id):
+            tokens = tokens_dev.cpu()      # the sync point for this batch
         captions = captions_from_tokens(self.vocab, tokens[:n])
         now = time.perf_counter()
         with self._lock:
@@ -454,11 +501,15 @@ class CaptionService:
 
     def _run(self) -> None:
         while True:
-            batch = self._collect()
+            self._batch_id += 1
+            batch_id = self._batch_id
+            with tracing.span("service.collect", batch=batch_id):
+                batch = self._collect(batch_id)
             if batch is None:
                 return
             try:
-                self._launch(batch)
+                with tracing.span("service.launch", batch=batch_id):
+                    self._launch(batch, batch_id)
             except Exception as e:  # resolve the batch's futures; keep serving
                 self._fail(batch, e)
 
@@ -467,8 +518,9 @@ class CaptionService:
             item = self._completions.get()
             if item is _SHUTDOWN:
                 return
-            tokens_dev, batch = item
+            tokens_dev, batch, batch_id = item
             try:
-                self._complete(tokens_dev, batch)
+                with tracing.span("service.complete", batch=batch_id):
+                    self._complete(tokens_dev, batch, batch_id)
             except Exception as e:
                 self._fail(batch, e)
