@@ -4,7 +4,13 @@
   comes from the frame-bucket ladder (``data.dataset._bucket``) and the batch
   axis is always padded to ``max_batch``.  Padded rows carry
   ``feat_mask=False`` and zero features, so a request's caption is the same
-  whether it shared a batch or rode alone.
+  whether it shared a batch or rode alone.  The padding is made on the
+  device: the host stages only the clips' own frames and their flat
+  positions in the padded batch, in one buffer of a ring of
+  ``pipeline_depth + 1`` (page-locked on the card), sends it in one
+  asynchronous copy, and the device scatters the frames into zeroed
+  batches and sets ``feat_mask`` at the same positions.  A slot is
+  refilled only after the event recorded behind its last copy has passed.
 - **Model limits.** On the card the service asks the model, at
   construction, for the largest ``t_pad`` it takes (``model.max_frames``:
   None for the RNN captioners, whose kernels take any clip length; the
@@ -26,9 +32,12 @@
   and ``service.backpressure``, the wait for room in the completion
   queue), the completer ``service.complete`` (child ``service.sync``, the
   wait for the device), each span with its batch id, and each request
-  its ``service.queue`` wait with its request and batch ids.  ``stats()``
-  always counts the queue waits (``queue_wait_ms_p50``/``_p95``) and the
-  frames launched and the real ones among them.
+  its ``service.queue`` wait with its request and batch ids.  ``service.pad``
+  packs the real frames into the staging slot; ``service.h2d`` enqueues
+  the copy and the device pad.  ``stats()`` always counts the queue waits
+  (``queue_wait_ms_p50``/``_p95``), the frames launched and the real ones
+  among them, the bytes sent (``h2d_bytes``) and the launches that waited
+  for a staging slot (``staging_waits``).
 - **Overload.** With ``max_queue`` an arrival evicts a strictly lower
   priority request or is shed with ``ServiceOverloaded``; a request whose
   ``deadline_ms`` passes before it reaches a batch fails with
@@ -38,7 +47,10 @@
   ``"f32"``; ``"bf16"`` (cast on the host, round to nearest even; the
   decode casts its inputs to the model dtype on entry, as the JAX service
   relies on); ``"int8"`` (``data.feature_cache.quantize_int8`` on the host,
-  dequantized to float32 on the device before ``predict_tokens``).
+  dequantized to float32 on the device before ``predict_tokens``).  Only
+  the real frames are cast or quantized; the cast is elementwise and the
+  int8 scales are per frame, and a padding frame is zero in every format,
+  so the device batch equals that of casting the padded batch.
 - **Mesh.** With ``mesh`` (``parallel/mesh.py``) every batch is split over
   the mesh's devices and each shard decodes through the model's kernel on
   its own device and stream (``ops/sharded.py``; the parameters are copied
@@ -51,11 +63,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import inspect
+import math
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +137,75 @@ class _Request:
         self.priority = int(priority)
         self.seq = seq
         self.deadline = self.t_submit + deadline_ms / 1e3 if deadline_ms is not None else None
+
+
+_WIRE = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+# the host's view of each staged dtype (numpy has no bfloat16: its bits)
+_HOST = {torch.int64: np.int64, torch.float32: np.float32, torch.bfloat16: np.int16,
+         torch.int8: np.int8}
+
+
+def _nbytes(sections) -> int:
+    return sum(math.prod(shape) * dtype.itemsize for _, dtype, shape in sections)
+
+
+def _views(buf, sections) -> Dict[str, object]:
+    """Typed views of a byte buffer laid out as ``sections`` (name, dtype,
+    shape), back to back: numpy arrays of a numpy buffer, tensors of a
+    tensor."""
+    host = isinstance(buf, np.ndarray)
+    out, off = {}, 0
+    for name, dtype, shape in sections:
+        n = math.prod(shape) * dtype.itemsize
+        out[name] = (buf[off:off + n].view(_HOST[dtype]).reshape(shape) if host
+                     else buf[off:off + n].view(dtype).view(shape))
+        off += n
+    return out
+
+
+class _StagingRing:
+    """Host byte buffers the worker packs batches into, one after another.
+
+    On the card each is page-locked and its copy to the device is
+    asynchronous; an event recorded after that copy guards the slot, so
+    ``take`` hands a slot out again only once the copy that read it has
+    finished.  On the CPU they are plain tensors and the "copy" is the
+    slot itself, which the device pad reads before the next take."""
+
+    def __init__(self, slots: int, nbytes: int, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.bufs = [self._alloc(nbytes) for _ in range(slots)]
+        self.arrays = [b.numpy() for b in self.bufs]     # the same bytes, for the packing
+        self.events = [torch.cuda.Event() if self.cuda else None for _ in range(slots)]
+        self.turn = 0
+
+    def _alloc(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.cuda)
+
+    def take(self, nbytes: int) -> Tuple[int, bool]:
+        """The next slot, at least ``nbytes`` long (grown geometrically),
+        and whether the host had to wait for its previous copy."""
+        i = self.turn
+        self.turn = (i + 1) % len(self.bufs)
+        event = self.events[i]
+        waited = event is not None and not event.query()
+        if waited:
+            event.synchronize()
+        if self.bufs[i].numel() < nbytes:
+            self.bufs[i] = self._alloc(max(nbytes, 2 * self.bufs[i].numel()))
+            self.arrays[i] = self.bufs[i].numpy()
+        return i, waited
+
+    def send(self, i: int, nbytes: int) -> torch.Tensor:
+        """Slot ``i``'s first ``nbytes`` on the device: one asynchronous
+        copy on the current stream, then the slot's event."""
+        host = self.bufs[i][:nbytes]
+        if not self.cuda:
+            return host
+        dev = host.to(self.device, non_blocking=True)
+        self.events[i].record(torch.cuda.current_stream(self.device))
+        return dev
 
 
 def _tree_to(tree, device):
@@ -208,6 +290,15 @@ class CaptionService:
         self._queue_waits = collections.deque(maxlen=self.config.latency_window)
         self._frames_launched = 0  # max_batch * t_pad of each batch launched
         self._frames_real = 0      # the clips' own frames among them
+        self._h2d_bytes = 0        # staged bytes sent to the device (features, index)
+        self._staging_waits = 0    # launches that waited on their slot's previous copy
+        # pipeline_depth + 1 slots, so a slot's last copy has mostly finished
+        # when its turn comes again; each sized for a full batch at the
+        # ladder's top rung, so only a clip above the ladder grows one
+        self._staging = _StagingRing(
+            max(1, self.config.pipeline_depth) + 1,
+            _nbytes(self._sections(self.config.max_batch * max(self.config.frame_buckets))),
+            self.device)
         self._batch_id = 0         # the worker's batch counter (span ids)
         self._t_start = time.perf_counter()
         self._closed = False
@@ -323,6 +414,7 @@ class CaptionService:
             self._queue_waits.clear()
             self._n_requests = self._n_batches = self._n_rows = 0
             self._frames_launched = self._frames_real = 0
+            self._h2d_bytes = self._staging_waits = 0
             self._t_start = time.perf_counter()
 
     def stats(self) -> Dict[str, object]:
@@ -331,6 +423,7 @@ class CaptionService:
             waits = sorted(self._queue_waits)
             n_requests, n_batches, n_rows = self._n_requests, self._n_batches, self._n_rows
             frames_launched, frames_real = self._frames_launched, self._frames_real
+            h2d_bytes, staging_waits = self._h2d_bytes, self._staging_waits
             t_start = self._t_start
             t_pads = sorted(self._t_pads)
         with self._qcond:
@@ -359,6 +452,11 @@ class CaptionService:
             # clips' own frames among them; the rest is padding
             "frames_launched": frames_launched,
             "frames_real": frames_real,
+            # bytes staged and sent to the device (the real frames in the
+            # wire format, int8 scales, their positions) and the launches
+            # that waited for a staging slot's previous copy
+            "h2d_bytes": h2d_bytes,
+            "staging_waits": staging_waits,
             "queue_depth": queue_depth,
             "shed": self._n_shed,
             "deadline_expired": self._n_expired,
@@ -437,28 +535,54 @@ class CaptionService:
         return batch
 
     def _launch(self, batch: List[_Request], batch_id: int) -> None:
-        """Pad, copy to the device, launch (asynchronously on CUDA) and
-        enqueue for completion."""
+        """Stage the batch's real frames, send them, pad them on the device,
+        launch (asynchronously on CUDA) and enqueue for completion.
+
+        ``service.pad`` packs each request's own frames, in the wire
+        format, into the next slot of the staging ring, after the flat
+        positions they take in the padded ``[max_batch * t_pad]`` frame
+        axis; nothing is zero-filled on the host.  A slot is refilled only
+        once the copy that last read it has finished (the wait is counted
+        in ``staging_waits``).  ``service.h2d`` enqueues one copy of the
+        slot and builds, on the device, zeroed ``[max_batch, t_pad, D]``
+        audio and visual batches with the frames put at their positions,
+        and ``feat_mask`` true at the same positions: the tensors the
+        host-padded layout gave, element for element."""
         cfg = self.config
+        lengths = [r.visual.shape[0] for r in batch]
         with tracing.span("service.pad", batch=batch_id):
-            t_pad = _bucket(max(r.visual.shape[0] for r in batch), cfg.frame_buckets)
-            audio = np.zeros((cfg.max_batch, t_pad, cfg.audio_dim), dtype=np.float32)
-            visual = np.zeros((cfg.max_batch, t_pad, cfg.visual_dim), dtype=np.float32)
-            feat_mask = np.zeros((cfg.max_batch, t_pad), dtype=bool)
-            for i, r in enumerate(batch):
-                t = r.visual.shape[0]
-                audio[i, :t] = r.audio
-                visual[i, :t] = r.visual
-                feat_mask[i, :t] = True
+            t_pad = _bucket(max(lengths), cfg.frame_buckets)
+            sections = self._sections(sum(lengths))
+            nbytes = _nbytes(sections)
+            slot, waited = self._staging.take(nbytes)
+            host = _views(self._staging.arrays[slot], sections)
+            # frame k of row i sits at i * t_pad + k of the padded frame axis
+            n = np.asarray(lengths)
+            np.add(np.arange(n.sum()), np.repeat(np.arange(len(n)) * t_pad - np.cumsum(n) + n, n),
+                   out=host["index"])
+            self._pack(host, "audio", [r.audio for r in batch])
+            self._pack(host, "visual", [r.visual for r in batch])
         with self._lock:
             self._t_pads.add(t_pad)
             self._queue_waits.extend(r.t_pop - r.t_submit for r in batch)
             self._frames_launched += cfg.max_batch * t_pad
-            self._frames_real += sum(r.visual.shape[0] for r in batch)
+            self._frames_real += sum(lengths)
+            self._h2d_bytes += nbytes
+            self._staging_waits += waited
         dev = self.device
         with tracing.span("service.h2d", batch=batch_id):
-            audio_d, visual_d = (self._to_device(x) for x in (audio, visual))
-            mask_d = torch.from_numpy(feat_mask).to(dev)
+            packed = _views(self._staging.send(slot, nbytes), sections)
+            pos, rows = packed["index"], cfg.max_batch * t_pad
+            padded = []
+            for name, dim in (("audio", cfg.audio_dim), ("visual", cfg.visual_dim)):
+                x = packed[name]
+                if cfg.transfer == "int8":
+                    x = dequantize_int8(x, packed[name + "_scale"])
+                padded.append(torch.zeros((rows, dim), dtype=x.dtype, device=dev)
+                              .index_copy_(0, pos, x).view(cfg.max_batch, t_pad, dim))
+            mask_d = (torch.zeros(rows, dtype=torch.bool, device=dev).index_fill_(0, pos, True)
+                      .view(cfg.max_batch, t_pad))
+        audio_d, visual_d = padded
         tokens = self.model.predict_tokens(
             self.params, audio_d, visual_d,
             max_caption_len=cfg.max_caption_len, mode=cfg.mode,
@@ -467,16 +591,32 @@ class CaptionService:
         with tracing.span("service.backpressure", batch=batch_id):
             self._completions.put((tokens, batch, batch_id))
 
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        """One padded feature batch through the configured wire format."""
-        dev = self.device
-        if self.config.transfer == "int8":
-            q, scale = quantize_int8(x)
-            return dequantize_int8(torch.from_numpy(q).to(dev), torch.from_numpy(scale).to(dev))
-        t = torch.from_numpy(x)
+    def _sections(self, n: int) -> List[Tuple[str, torch.dtype, Tuple[int, ...]]]:
+        """The staging layout of ``n`` frames: their flat positions in the
+        padded batch, int8 scales, then visual and audio frames in the wire
+        format; each section's offset is a multiple of its item size."""
+        cfg = self.config
+        wire = _WIRE[cfg.transfer]
+        scales = ([("visual_scale", torch.float32, (n, 1)), ("audio_scale", torch.float32, (n, 1))]
+                  if cfg.transfer == "int8" else [])
+        return ([("index", torch.int64, (n,))] + scales
+                + [("visual", wire, (n, cfg.visual_dim)), ("audio", wire, (n, cfg.audio_dim))])
+
+    def _pack(self, host: Dict[str, np.ndarray], name: str, frames: List[np.ndarray]) -> None:
+        """One stream's frames, in request order, into its staging section
+        through the configured wire format."""
+        dst = host[name]
+        if self.config.transfer == "f32":
+            np.concatenate(frames, out=dst)
+            return
+        x = np.concatenate(frames)
         if self.config.transfer == "bf16":
-            t = t.to(torch.bfloat16)
-        return t.to(dev)
+            # round to nearest even, as .to(bfloat16)
+            torch.from_numpy(dst).view(torch.bfloat16).copy_(torch.from_numpy(x))
+        else:
+            q, scale = quantize_int8(x)
+            dst[:] = q
+            host[name + "_scale"][:] = scale
 
     def _complete(self, tokens_dev: torch.Tensor, batch: List[_Request], batch_id: int) -> None:
         n = len(batch)

@@ -8,6 +8,7 @@ Also: the HTTP front end, the card-by-default rule, and the package's
 independence from JAX.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -243,30 +244,137 @@ def test_wire_formats_match_jax_service(tiny, transfer, single, mode):
     assert len(set(got)) > 1
 
 
-def test_wire_formats_reach_the_model_as_the_jax_service_sends_them(tiny):
-    """What ``predict_tokens`` receives: bf16 features rounded as ml_dtypes
-    rounds them, and int8 features dequantized to float32 bit for bit as
-    the JAX service's jitted dequantize gives them."""
+class _Capture:
+    """Stands in for the model: keeps a copy of what each
+    ``predict_tokens`` call receives and passes the call on."""
+
+    def __init__(self, model):
+        self._model = model
+        self.calls = []
+
+        @functools.wraps(model.predict_tokens)
+        def predict_tokens(params, audio, visual, *a, **kw):
+            self.calls.append((audio.clone(), visual.clone(), kw["feat_mask"].clone()))
+            return model.predict_tokens(params, audio, visual, *a, **kw)
+
+        self.predict_tokens = predict_tokens
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+
+def _served_inputs(tiny, clips, **service):
+    """Serve ``clips`` ((visual, audio or None) pairs, submitted at once);
+    return each call's (requests, audio, visual, feat_mask) as
+    ``predict_tokens`` received them, and the service's stats.  Requests of
+    one priority take the rows of a batch in arrival order."""
+    _, _, params, model, vocab = tiny
+    capture = _Capture(model)
+    with CaptionService(capture, from_numpy_tree(params), vocab,
+                        ServiceConfig(**dict(SERVICE, **service)), device="cpu") as svc:
+        for f in [svc.submit(v, a) for v, a in clips]:
+            f.result(timeout=300)
+        stats = svc.stats()
+    out, first = [], 0
+    for audio, visual, mask in capture.calls:
+        n = int(mask.any(dim=1).sum())
+        out.append((clips[first:first + n], audio, visual, mask))
+        first += n
+    assert first == len(clips)
+    return out, stats
+
+
+def _host_padded(clips, rows, t_pad):
+    """The batch as the host-padded layout builds it: each clip's frames at
+    the head of its row, zeros elsewhere (audio zeros for video-only)."""
+    audio = np.zeros((rows, t_pad, A_DIM), np.float32)
+    visual = np.zeros((rows, t_pad, V_DIM), np.float32)
+    mask = np.zeros((rows, t_pad), bool)
+    for i, (v, a) in enumerate(clips):
+        visual[i, :len(v)] = v
+        if a is not None:
+            audio[i, :len(v)] = a
+        mask[i, :len(v)] = True
+    return audio, visual, mask
+
+
+def _as_jax_service_sends(x, transfer):
+    """A padded float32 batch through the JAX service's wire format, as the
+    features ``predict_tokens`` sees: bf16 rounded as ml_dtypes rounds it,
+    int8 dequantized as the JAX service's jitted dequantize gives it."""
     import jax.numpy as jnp
 
     from mvc_tpu.data.feature_cache import quantize_int8 as jax_quantize
 
-    _, _, params, model, vocab = tiny
+    if transfer == "bf16":
+        return np.asarray(x.astype(jnp.bfloat16)).astype(np.float32)
+    if transfer == "int8":
+        q, scale = jax_quantize(x)
+        return np.asarray(jax.jit(lambda q, s: q.astype(jnp.float32) * s)(q, scale))
+    return x
+
+
+def test_wire_formats_reach_the_model_as_the_jax_service_sends_them(tiny):
+    """What ``predict_tokens`` receives: bf16 features rounded as ml_dtypes
+    rounds them, and int8 features dequantized to float32 bit for bit as
+    the JAX service's jitted dequantize gives them."""
     x = np.random.default_rng(6).normal(size=(4, 8, V_DIM)).astype(np.float32) * 3
     x[1, 2] = 0.0                                   # an all-zero frame: scale 1.0
-    with CaptionService(model, from_numpy_tree(params), vocab,
-                        ServiceConfig(**dict(SERVICE, transfer="bf16")), device="cpu") as svc:
-        got = svc._to_device(x)
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_array_equal(got.float().numpy(),
-                                  np.asarray(x.astype(jnp.bfloat16)).astype(np.float32))
-    with CaptionService(model, from_numpy_tree(params), vocab,
-                        ServiceConfig(**dict(SERVICE, transfer="int8")), device="cpu") as svc:
-        got = svc._to_device(x)
-    q, scale = jax_quantize(x)
-    want = jax.jit(lambda q, s: q.astype(jnp.float32) * s)(q, scale)
-    assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    clips = [(v, None) for v in x]
+    for transfer, dtype in (("bf16", torch.bfloat16), ("int8", torch.float32)):
+        calls, _ = _served_inputs(tiny, clips, transfer=transfer)
+        assert len(calls) == 1                      # a full batch of 8-frame clips
+        (_, audio, got, mask), = calls
+        assert got.dtype == audio.dtype == dtype and bool(mask.all())
+        np.testing.assert_array_equal(got.float().numpy(), _as_jax_service_sends(x, transfer))
+        assert not audio.float().any()
+
+
+BATCHES = {
+    "mixed_lengths_one_bucket": [(5, True), (8, True), (6, True)],
+    "above_the_ladder": [(11, True), (3, True)],
+    "video_only": [(7, False), (4, False)],
+    "batch_of_one": [(6, True)],
+    "full_max_batch": [(5, True), (8, False), (2, True), (7, True)],
+}
+
+
+@pytest.mark.parametrize("transfer", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(BATCHES))
+def test_device_padded_batch_equals_the_host_padded_one(tiny, case, transfer):
+    """The service stages only the clips' own frames and pads on the device:
+    ``predict_tokens`` must still receive, element for element, the audio,
+    visual and ``feat_mask`` tensors of the host-padded layout through the
+    JAX service's wire format, and ``h2d_bytes`` counts the packed frames
+    (int8: payload and per-frame scales) and their int64 positions."""
+    rng = np.random.default_rng(7)
+    clips = []
+    for t, with_audio in BATCHES[case]:
+        v = (rng.normal(size=(t, V_DIM)) * 3).astype(np.float32)
+        a = (rng.normal(size=(t, A_DIM)) * 3).astype(np.float32) if with_audio else None
+        v[t // 2] = 0.0                               # an all-zero frame: int8 scale 1.0
+        clips.append((v, a))
+    calls, stats = _served_inputs(tiny, clips, transfer=transfer)
+    dtype = torch.bfloat16 if transfer == "bf16" else torch.float32
+    for reqs, audio, visual, mask in calls:
+        t_pad = visual.shape[1]
+        longest = max(len(v) for v, _ in reqs)
+        assert t_pad == next((b for b in BUCKETS if longest <= b), -(-longest // 8) * 8)
+        want_a, want_v, want_m = _host_padded(reqs, SERVICE["max_batch"], t_pad)
+        assert audio.shape == want_a.shape and visual.shape == want_v.shape
+        assert audio.dtype == visual.dtype == dtype and mask.dtype == torch.bool
+        assert audio.device == visual.device == mask.device == torch.device("cpu")
+        np.testing.assert_array_equal(mask.numpy(), want_m)
+        for got, want in ((audio, want_a), (visual, want_v)):
+            got = got.float().numpy()
+            np.testing.assert_array_equal(got, _as_jax_service_sends(want, transfer))
+            assert not np.signbit(got[~want_m]).any()  # padding is +0.0
+    frames = sum(len(v) for v, _ in clips)
+    wire = {"f32": 4, "bf16": 2, "int8": 1}[transfer]
+    packed = frames * (A_DIM + V_DIM) * wire + (frames * 2 * 4 if transfer == "int8" else 0)
+    assert stats["h2d_bytes"] == packed + frames * 8
+    assert stats["staging_waits"] == 0                # no copy to wait for on the CPU
+    assert stats["frames_real"] == frames
 
 
 def test_over_limit_clip_fails_alone(tiny, monkeypatch):
